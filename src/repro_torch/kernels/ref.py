@@ -1,0 +1,49 @@
+"""Plain PyTorch versions of the ELL kernels — what the wrappers run on a
+CPU tensor, and what the CUDA kernels are held against on the card.
+
+Semantics are the kernels': padding slots (``col == -1``) and columns
+at or past ``x.shape[0]`` contribute nothing; ``max_times`` starts from
+-inf so signed products are not clamped, and rows with no contributing
+entry resolve to 0.  (The JAX reference's oracle clamps columns past
+the end to the last one instead; its Pallas kernel drops them, as here.)
+"""
+from __future__ import annotations
+
+import torch
+
+RINGS = ("plus_times", "max_times")
+
+
+def _gather_products(ecols: torch.Tensor, evals: torch.Tensor,
+                     x: torch.Tensor):
+    """(hit, prods): per-slot validity mask and vals ⊗ x[col]; for a 2-D
+    ``x`` both carry a trailing query axis."""
+    hit = (ecols >= 0) & (ecols < x.shape[0])
+    xg = x[torch.where(hit, ecols, 0).long()].to(torch.float32)
+    if x.dim() == 2:
+        hit = hit[..., None]
+        prods = evals.to(torch.float32)[..., None] * xg    # (R, K, B)
+    else:
+        prods = evals.to(torch.float32) * xg               # (R, K)
+    return hit, prods
+
+
+def _reduce(hit: torch.Tensor, prods: torch.Tensor, ring: str):
+    if ring == "plus_times":
+        return torch.where(hit, prods, 0.0).sum(dim=1)
+    if ring == "max_times":
+        out = torch.where(hit, prods, -torch.inf).amax(dim=1)
+        return torch.where(torch.isneginf(out), 0.0, out)
+    raise ValueError(f"ring must be one of {RINGS}, got {ring!r}")
+
+
+def spmv_ell_ref(ecols: torch.Tensor, evals: torch.Tensor, x: torch.Tensor,
+                 ring: str = "plus_times") -> torch.Tensor:
+    """y[r] = ⊕_k evals[r,k] ⊗ x[ecols[r,k]]."""
+    return _reduce(*_gather_products(ecols, evals, x), ring)
+
+
+def spmm_ell_ref(ecols: torch.Tensor, evals: torch.Tensor, x: torch.Tensor,
+                 ring: str = "plus_times") -> torch.Tensor:
+    """Y[r, j] = ⊕_k evals[r,k] ⊗ X[ecols[r,k], j]."""
+    return _reduce(*_gather_products(ecols, evals, x), ring)
