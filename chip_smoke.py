@@ -25,6 +25,28 @@ Phases, each of which must pass (any failure raises, exit code != 0):
 4. The same main path with ``set_device("cpu")`` (plain versions): same
    C2 hosts, equal batch columns (integer counts), and fit and PageRank
    within rtol=1e-5, atol=1e-7.
+5. ``wkv6`` against its plain version on the card at the serve shape
+   (8, 512, 32, 64) and at (1, 4096, 32, 64): r, k, v normal, w in
+   (0.45, 0.95), u x 0.1; output and final state within rtol=1e-4 and
+   atol=1e-4 x max(1, max|plain|) (fp32, another summation order: the
+   rounding of a recurrence grows with the state it accumulates, which
+   the model's near-1 decays make large); times of kernel and plain
+   version and the bytes bound.  No single PyTorch call computes WKV-6,
+   so the library time is null.
+6. The serving path of rwkv6-1.6b at full width and depth on the card:
+   the port's seeded init, ``rwkv_impl="pallas"``, 8 prompts of 511
+   bytes of packet-log text (S = 512 with BOS), ``generate(max_new=32)``
+   through ``repro_torch.launch.serve``.  Launch counts are zeroed just
+   before and read just after: exactly 24 ``wkv6`` launches, all in
+   prefill.  One prefill and one decode step again under
+   ``torch.profiler``: their device kernel time and its share of the
+   unprofiled time.  Then the plain path (``rwkv_impl="chunked"``) on
+   the same weights, teacher-forced over the kernel path's tokens: layer 0's WKV
+   state (identical inputs) within rtol=atol=1e-3, the tolerance between
+   the chunked and sequential forms; every layer's state, the prefill
+   logits and all 32 decode steps' logits within a relative norm error
+   of 0.1 (bf16 activations: the two forms round their WKV outputs to
+   bf16 differently and the differences compound over 24 layers).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -32,6 +54,7 @@ with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -51,7 +74,12 @@ from repro_torch.device import set_device  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import spmm as kspmm  # noqa: E402
 from repro_torch.kernels import spmv as kspmv  # noqa: E402
-from repro_torch.kernels.ref import spmm_ell_ref, spmv_ell_ref  # noqa: E402
+from repro_torch.kernels.ref import (spmm_ell_ref, spmv_ell_ref,  # noqa: E402
+                                     wkv6_ref)
+from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import blocks, init_params, model  # noqa: E402
 from repro_torch.pipeline import (TrafficConfig, botnet_truth,  # noqa: E402
                                   records_to_tsv, synth_packets)
 
@@ -68,6 +96,15 @@ KERNELS = {
                      replaces="src/repro/kernels/spmm.py:81"),
 }
 SOURCE = "src/repro_torch/kernels/csrc/ell.cu"
+WKV_SOURCE = "src/repro_torch/kernels/csrc/wkv6.cu"
+WKV_REPLACES = "src/repro/kernels/wkv6.py:55"
+WKV_RTOL, WKV_ATOL = 1e-4, 1e-4            # atol x max(1, max|plain|)
+WKV_SHAPES = [(8, 512, 32, 64), (1, 4096, 32, 64)]
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT_BYTES, SERVE_NEW = \
+    "rwkv6-1.6b", 8, 511, 32
+SERVE_S_MAX = 1024
+FORMS_RTOL, FORMS_ATOL = 1e-3, 1e-3        # chunked vs sequential WKV
+SERVE_REL = 0.1                            # bf16 path, relative norm
 
 
 class SmokeFailure(RuntimeError):
@@ -331,6 +368,266 @@ def compare_paths(card: dict, cpu: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: wkv6 at the serve shape and at a long sequence.
+# ---------------------------------------------------------------------------
+
+def wkv_inputs(shape, dev, seed: int = 0):
+    """r, k, v normal; w in (0.45, 0.95); u x 0.1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    w = torch.sigmoid(torch.randn(shape, generator=g, device=dev)) * 0.5 \
+        + 0.45
+    u = torch.randn(shape[2:], generator=g, device=dev) * 0.1
+    return r, k, v, w, u
+
+
+def wkv_bound(shape) -> tuple[float, str]:
+    """Least time for one WKV-6 call on an H100: r, k, v, w and u read
+    once, o and the final state written once, fp32; 4*Dh^2 flops per
+    (b, t, h) (r^T S and the state update, as multiply-adds)."""
+    b, s, h, dh = shape
+    n_bytes = 4 * (5 * b * s * h * dh + h * dh + b * h * dh * dh)
+    flops = 4 * dh * dh * b * s * h
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def measure_wkv6(r, k, v, w, u, plain_iters: int) -> dict:
+    """Kernel against its plain version on the same inputs (output and
+    final state), then both timed; raises beyond tolerance."""
+    got = wkv6(r, k, v, w, u)
+    want = wkv6_ref(r, k, v, w, u)
+    torch.cuda.synchronize()
+    err, scale = 0.0, {}
+    for name, g, x in zip(("output", "state"), got, want):
+        check(g.shape == x.shape and bool(torch.isfinite(g).all()),
+              f"wkv6 {name}: shape {tuple(g.shape)} / non-finite")
+        err = max(err, float((g - x).abs().max()))
+        scale[name] = float(x.abs().max())
+        atol = WKV_ATOL * max(1.0, scale[name])
+        check(torch.allclose(g, x, rtol=WKV_RTOL, atol=atol),
+              f"wkv6 {name}: max abs err {float((g - x).abs().max())} "
+              f"beyond rtol={WKV_RTOL}, atol={atol}")
+    out = {"shape": list(r.shape), "max_abs_err": err, "max_abs": scale,
+           "ms": timed_ms(lambda: wkv6(r, k, v, w, u)),
+           "plain_ms": timed_ms(lambda: wkv6_ref(r, k, v, w, u),
+                                iters=plain_iters, warmup=1),
+           "library_ms": None}
+    out["bound_ms"], out["bound_by"] = wkv_bound(r.shape)
+    return out
+
+
+def wkv6_at_shapes(dev: torch.device) -> list:
+    results = []
+    for shape in WKV_SHAPES:
+        m = measure_wkv6(*wkv_inputs(shape, dev), plain_iters=3)
+        results.append(m)
+        log(f"[wkv6] {shape}: kernel {m['ms']:.4f} ms, plain "
+            f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_by']}), max abs err {m['max_abs_err']:.3g} "
+            f"(max |plain| {m['max_abs']})")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: serve rwkv6-1.6b at full width.
+# ---------------------------------------------------------------------------
+
+def params_iter(params: dict):
+    for key, val in params.items():
+        if key == "layers":
+            for layer in val:
+                yield from layer["rwkv"].values()
+        else:
+            yield val
+
+
+class ServeRecorder:
+    """Time, and keep what they return, the model calls that the serving
+    entry point makes (``serve.prefill``, ``serve.decode_step``), with the
+    wkv6 launches inside each; keep the inputs of the first ``wkv6``
+    call.  The wrapped functions still run and count."""
+
+    def __init__(self):
+        self.steps: list = []          # (batch, logits, ms, wkv6 launches)
+        self.wkv_args = None
+
+    def _timed(self, fn, *args, **kw):
+        k0 = ops.kernel_launches()["wkv6"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, \
+            ops.kernel_launches()["wkv6"] - k0
+
+    def _prefill(self, params, batch, cfg, s_max):
+        (logits, caches), self.prefill_s, self.prefill_launches = \
+            self._timed(self._orig[0], params, batch, cfg, s_max=s_max)
+        self.batch, self.logits, self.caches = batch, logits, caches
+        return logits, caches
+
+    def _decode(self, params, caches, batch, cfg):
+        (logits, caches), sec, n = self._timed(self._orig[1], params,
+                                               caches, batch, cfg)
+        self.steps.append((batch, logits, sec * 1e3, n))
+        self.last_caches = caches
+        return logits, caches
+
+    def _wkv6(self, *args):
+        if self.wkv_args is None:
+            self.wkv_args = tuple(a.clone() for a in args)
+        return self._orig[2](*args)
+
+    def __enter__(self):
+        self._orig = (serve.prefill, serve.decode_step, blocks.wkv6)
+        serve.prefill, serve.decode_step = self._prefill, self._decode
+        blocks.wkv6 = self._wkv6
+        return self
+
+    def __exit__(self, *exc):
+        serve.prefill, serve.decode_step, blocks.wkv6 = self._orig
+        return False
+
+
+def serve_prompts() -> list:
+    """Packet-log text (the port's synthetic window as TSV), cut into
+    ``SERVE_BATCH`` prompts of ``SERVE_PROMPT_BYTES`` ASCII bytes."""
+    text = records_to_tsv(synth_packets(TrafficConfig(**MAIN_CFG), 2.0))
+    n = SERVE_PROMPT_BYTES
+    prompts = [text[i * n:(i + 1) * n] for i in range(SERVE_BATCH)]
+    check(all(len(p.encode()) == n for p in prompts),
+          "serve prompts are not all ASCII of the full length")
+    return prompts
+
+
+def device_share(fn, host_ms: float) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the CUDA kernels it
+    ran, their summed device time (one stream, so no overlap), and that
+    time's share of ``host_ms``, the call's time measured without the
+    profiler.  ``None`` values when the profiler saw no device work."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    if not kernels:
+        return {"device_kernels": None, "device_ms": None, "busy": None}
+    return {"device_kernels": len(kernels), "device_ms": busy_ms,
+            "busy": busy_ms / host_ms}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def serve_path(dev: torch.device) -> dict:
+    """Generate through ``repro_torch.launch.serve`` with the wkv6 kernel
+    in prefill, then hold it against the plain (chunked) path on the same
+    weights, teacher-forced over the kernel path's tokens."""
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), rwkv_impl="pallas")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model},"
+        f" {cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}; "
+        f"{sum(p.numel() for p in params_iter(params)) / 1e9:.3f} B "
+        f"params made in {time.perf_counter() - t0:.2f} s")
+    prompts = serve_prompts()
+    serve.generate(cfg, params, prompts, max_new=2, s_max=SERVE_S_MAX)
+
+    ops.reset_launches()
+    with ServeRecorder() as rec:
+        t0 = time.perf_counter()
+        outs = serve.generate(cfg, params, prompts, max_new=SERVE_NEW,
+                              s_max=SERVE_S_MAX)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    log(f"[serve] kernel launches {launches}")
+    check(launches["wkv6"] == cfg.n_layers and
+          rec.prefill_launches == cfg.n_layers,
+          f"wkv6 launches {launches['wkv6']} (prefill "
+          f"{rec.prefill_launches}), want one per layer = {cfg.n_layers}")
+    check(len(rec.steps) == SERVE_NEW and
+          all(n == 0 for *_, n in rec.steps), "decode launched wkv6")
+    b, s = rec.batch["tokens"].shape
+    check((b, s) == (SERVE_BATCH, SERVE_PROMPT_BYTES + 1) and
+          len(outs) == SERVE_BATCH, f"serve shapes {(b, s)}, {len(outs)}")
+    check(rec.logits.shape == (b, 1, cfg.padded_vocab) and
+          all(bool(torch.isfinite(lg).all()) for lg in
+              [rec.logits] + [step[1] for step in rec.steps]),
+          "serve logits: shape / non-finite")
+
+    decode_ms = sum(ms for *_, ms, _ in rec.steps) / len(rec.steps)
+    times = {"prefill_s": rec.prefill_s,
+             "prefill_tok_per_s": b * s / rec.prefill_s,
+             "decode_ms_per_step": decode_ms,
+             "decode_tok_per_s": b / decode_ms * 1e3,
+             "generate_s": total_s,
+             "generate_tok_per_s": b * SERVE_NEW / total_s}
+    log(f"[serve] prefill {b}x{s} tokens: {rec.prefill_s:.4f} s "
+        f"({times['prefill_tok_per_s']:.0f} tok/s); decode "
+        f"{decode_ms:.3f} ms per step of {b} tokens "
+        f"({times['decode_tok_per_s']:.1f} tok/s); generate {b}x{SERVE_NEW}"
+        f" new tokens in {total_s:.3f} s "
+        f"({times['generate_tok_per_s']:.1f} tok/s)")
+
+    busy = {
+        "prefill": device_share(lambda: model.prefill(
+            params, rec.batch, cfg, s_max=SERVE_S_MAX), rec.prefill_s * 1e3),
+        "decode_step": device_share(lambda: model.decode_step(
+            params, rec.last_caches, rec.steps[-1][0], cfg), decode_ms)}
+    for name, d in busy.items():
+        log(f"[serve] profiled {name}: {d['device_kernels']} device kernels,"
+            f" {d['device_ms']} ms on the device, busy share {d['busy']}")
+
+    plain = dataclasses.replace(cfg, rwkv_impl="chunked")
+    k0 = ops.kernel_launches()["wkv6"]
+    logits, caches = model.prefill(params, rec.batch, plain,
+                                   s_max=SERVE_S_MAX)
+    errs = {"prefill_logits": rel_err(rec.logits, logits)}
+    w0, p0 = rec.caches[0].wkv, caches[0].wkv
+    check(torch.allclose(w0, p0, rtol=FORMS_RTOL, atol=FORMS_ATOL),
+          f"layer 0 WKV state: max abs err {float((w0 - p0).abs().max())}"
+          f" beyond rtol={FORMS_RTOL}, atol={FORMS_ATOL}")
+    errs["layer0_state_max_abs"] = float((w0 - p0).abs().max())
+    errs["state"] = [rel_err(a.wkv, c.wkv)
+                     for a, c in zip(rec.caches, caches)]
+    errs["decode_logits"] = []
+    for batch, want, *_ in rec.steps:
+        logits, caches = model.decode_step(params, caches, batch, plain)
+        errs["decode_logits"].append(rel_err(want, logits))
+    torch.cuda.synchronize()
+    check(ops.kernel_launches()["wkv6"] == k0, "plain path launched wkv6")
+    worst = max([errs["prefill_logits"]] + errs["state"] +
+                errs["decode_logits"])
+    log(f"[serve] kernel vs plain path, relative norm error: prefill "
+        f"logits {errs['prefill_logits']:.3g}, states "
+        f"{min(errs['state']):.3g}..{max(errs['state']):.3g}, decode "
+        f"logits {min(errs['decode_logits']):.3g}.."
+        f"{max(errs['decode_logits']):.3g}; layer 0 state max abs "
+        f"{errs['layer0_state_max_abs']:.3g}")
+    check(worst <= SERVE_REL,
+          f"kernel and plain serve paths differ by {worst:.3g} > {SERVE_REL}")
+
+    main_shape = measure_wkv6(*rec.wkv_args, plain_iters=3)
+    log(f"[serve] wkv6 on layer 0's inputs {main_shape['shape']}: kernel "
+        f"{main_shape['ms']:.4f} ms, plain {main_shape['plain_ms']:.4f} ms,"
+        f" max abs err {main_shape['max_abs_err']:.3g} (max |plain| "
+        f"{main_shape['max_abs']})")
+    return dict(launches=launches["wkv6"], times=times, errs=errs,
+                busy=busy, main_shape=main_shape)
+
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -338,6 +635,8 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
@@ -348,14 +647,15 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s -> {ops.BUILD_DIR}")
 
     window = kernels_at_window(dev)
+    wkv = wkv6_at_shapes(dev)
 
     ops.reset_launches()
     with CaptureKernelInputs() as cap:
         card = main_path("cuda")
     launches = ops.kernel_launches()
     log(f"[main cuda] kernel launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    for name in KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the main path")
 
     main_shapes = {}
     for name, calls in cap.calls.items():
@@ -373,6 +673,8 @@ def main() -> int:
     set_device("cuda")
     compare_paths(card, cpu)
     log("[compare] card and CPU main paths agree")
+
+    served = serve_path(dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -397,6 +699,24 @@ def main() -> int:
                           ("shape", "ms", "plain_ms", "library_ms",
                            "bound_ms", "max_abs_err")},
         })
+    head, long_ = wkv
+    rows.append({
+        "name": "wkv6", "route": "cuda", "source": WKV_SOURCE,
+        "replaces": WKV_REPLACES, "launches": served["launches"],
+        "max_abs_err": max(head["max_abs_err"], long_["max_abs_err"],
+                           served["main_shape"]["max_abs_err"]),
+        "ms": head["ms"], "kernel_ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None,
+        "library": "none: no single PyTorch call computes WKV-6",
+        "shape": head["shape"],
+        "long": {k: long_[k] for k in ("shape", "ms", "plain_ms",
+                                       "bound_ms", "max_abs_err")},
+        "main_path": {k: served["main_shape"][k] for k in
+                      ("shape", "ms", "plain_ms", "bound_ms",
+                       "max_abs_err")},
+        "serve": dict(served["times"], device=served["busy"]),
+    })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,0 +1,13 @@
+"""internlm2-20b — dense GQA.
+
+[arXiv:2403.17297; hf]  48L d_model=6144 48H (GQA kv=8) d_ff=16384
+vocab=92544.
+"""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-20b",
+    n_layers=48, d_model=6144, n_heads=48, n_kv_heads=8,
+    d_ff=16384, vocab=92544,
+    pattern="A", rope_theta=1_000_000.0,
+)

@@ -1,0 +1,13 @@
+"""qwen2.5-14b — dense GQA with QKV bias.
+
+[hf:Qwen/Qwen2.5-0.5B (family); hf]  48L d_model=5120 40H (GQA kv=8)
+d_ff=13824 vocab=152064; rope_theta=1e6.
+"""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-14b",
+    n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8,
+    d_ff=13824, vocab=152064,
+    pattern="A", qkv_bias=True, rope_theta=1_000_000.0,
+)

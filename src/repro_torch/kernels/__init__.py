@@ -5,12 +5,13 @@ Sources live in ``csrc/`` and build with ``nvcc`` on first use (see
 plain PyTorch version instead (:mod:`repro_torch.kernels.ref`).
 """
 from .ops import build_all, kernel_launches, on_cuda, reset_launches
-from .ref import spmm_ell_ref, spmv_ell_ref
+from .ref import spmm_ell_ref, spmv_ell_ref, wkv6_ref
 from .spmm import spmm_ell
 from .spmv import EllOverflowError, csr_to_ell, spmv_ell
+from .wkv6 import wkv6
 
 __all__ = [
-    "spmv_ell", "spmm_ell", "csr_to_ell", "EllOverflowError",
-    "spmv_ell_ref", "spmm_ell_ref", "on_cuda", "build_all",
+    "spmv_ell", "spmm_ell", "wkv6", "csr_to_ell", "EllOverflowError",
+    "spmv_ell_ref", "spmm_ell_ref", "wkv6_ref", "on_cuda", "build_all",
     "kernel_launches", "reset_launches",
 ]

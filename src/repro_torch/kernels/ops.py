@@ -40,11 +40,15 @@ SIGNATURES = {
         "ell_spmm": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _I64, _INT, _I64, _INT,
                      _INT, _VOIDP),
     },
+    "wkv6": {
+        "wkv6_forward": (_VOIDP,) * 7 + (_I64, _I64, _INT, _INT, _I64, _I64,
+                                          _I64, _VOIDP),
+    },
 }
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
-_LAUNCHES = {"spmv_ell": 0, "spmm_ell": 0}
+_LAUNCHES = {"spmv_ell": 0, "spmm_ell": 0, "wkv6": 0}
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

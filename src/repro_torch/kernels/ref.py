@@ -1,7 +1,7 @@
-"""Plain PyTorch versions of the ELL kernels — what the wrappers run on a
-CPU tensor, and what the CUDA kernels are held against on the card.
+"""Plain PyTorch versions of the kernels — what the wrappers run on a CPU
+tensor, and what the CUDA kernels are held against on the card.
 
-Semantics are the kernels': padding slots (``col == -1``) and columns
+ELL semantics are the kernels': padding slots (``col == -1``) and columns
 at or past ``x.shape[0]`` contribute nothing; ``max_times`` starts from
 -inf so signed products are not clamped, and rows with no contributing
 entry resolve to 0.  (The JAX reference's oracle clamps columns past
@@ -47,3 +47,15 @@ def spmm_ell_ref(ecols: torch.Tensor, evals: torch.Tensor, x: torch.Tensor,
                  ring: str = "plus_times") -> torch.Tensor:
     """Y[r, j] = ⊕_k evals[r,k] ⊗ X[ecols[r,k], j]."""
     return _reduce(*_gather_products(ecols, evals, x), ring)
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor):
+    """The RWKV-6 recurrence from a zero state: the model's own
+    ``wkv_scan`` in float32.  Returns (o (B,S,H,Dh), final state
+    (B,H,Dh,Dh) k-major)."""
+    from ..models.blocks import wkv_scan
+    b, _, h, dh = r.shape
+    state0 = torch.zeros((b, h, dh, dh), dtype=torch.float32,
+                         device=r.device)
+    return wkv_scan(*(t.to(torch.float32) for t in (r, k, v, w, u)), state0)

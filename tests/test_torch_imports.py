@@ -57,6 +57,30 @@ def test_imports_with_jax_and_reference_blocked():
     assert int(out.stdout.strip()) >= 20
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.models", "repro_torch.configs", "repro_torch.data",
+    "repro_torch.launch.serve"])
+def test_serving_modules_import_with_jax_and_reference_blocked(module):
+    """The serving slice's packages import on their own, and resolve
+    every config, with jax and the JAX package made unimportable."""
+    script = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        import importlib
+        importlib.import_module({module!r})
+        from repro_torch.configs import ARCHS, get_config
+        assert len({{get_config(a).name for a in ARCHS}}) == len(ARCHS)
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_DEVICE="cpu")
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_chip_smoke_refuses_without_card():
     """No result and a non-zero exit where no CUDA device is visible."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
