@@ -47,6 +47,40 @@ Phases, each of which must pass (any failure raises, exit code != 0):
    logits and all 32 decode steps' logits within a relative norm error
    of 0.1 (bf16 activations: the two forms round their WKV outputs to
    bf16 differently and the differences compound over 24 layers).
+7. ``rglru_scan`` against its plain version on the card at the serve
+   shape (8, 512, 4096) and at (1, 8192, 4096): a = exp(-8 softplus(Λ) r)
+   in (0, 1) as the model makes it (Λ the model's init, r a sigmoid), b
+   x 0.1 normal.  Equal bit for bit (the kernel rounds each product and
+   sum as the plain version's two elementwise operations do); times of
+   kernel and plain version and the bytes bound.  No single PyTorch call
+   computes the recurrence, so the library time is null.
+8. ``flash_attention`` against its plain version (the model's
+   ``attention_naive``) on the card: the serve shape (8, 512, 16, 256)
+   with one kv head, bf16, causal, window 2048; (1, 4096, 16, 256), the
+   same, where the window cuts; (2, 512, 16, 128) with 4 kv heads in
+   float32, causal.  bf16 within rtol=atol=2e-2 of the plain version on
+   the same inputs (which rounds its softmax weights to bf16 before the
+   product: up to 2^-9 of |v| per weight, plus half an output ulp each)
+   and within rtol=atol=1e-2 of the plain version on the same values in
+   float32 (the kernel's own arithmetic, rounded once to bf16); float32
+   within rtol=atol=2e-5.  Times of kernel, plain version and, where it
+   computes the same function (no window cut), the library yardstick
+   ``scaled_dot_product_attention(is_causal=True)`` with k and v expanded
+   to 16 heads; the bound from the visible (row, key) pairs.
+9. The serving path of recurrentgemma-9b at full width and depth on the
+   card (after freeing the rwkv6 weights): the port's seeded init,
+   ``rglru_impl="pallas"``, ``attention_impl="pallas"``, the same 8
+   prompts, ``generate(max_new=32, s_max=1024)``.  Launch counts are
+   zeroed just before and read just after: exactly 26 ``rglru_scan`` and
+   12 ``flash_attention`` launches, all in prefill, none in decode.
+   Profiled prefill and decode step as in phase 6; peak device memory.
+   Then the plain path (``rglru_impl="scan"``, ``attention_impl=
+   "chunked"``, which is naive attention at S = 512) on the same weights,
+   teacher-forced over the kernel path's tokens: layer 0's RG-LRU state
+   (identical inputs; sequential kernel against the plain log-depth scan)
+   within rtol=atol=1e-4 in float32; every layer's cache tensors, the
+   prefill logits and all 32 decode steps' logits within a relative norm
+   error of 0.1 (bf16, 38 layers), and the ring positions equal.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -55,6 +89,7 @@ with code 2 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -74,17 +109,21 @@ from repro_torch.device import set_device  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import spmm as kspmm  # noqa: E402
 from repro_torch.kernels import spmv as kspmv  # noqa: E402
-from repro_torch.kernels.ref import (spmm_ell_ref, spmv_ell_ref,  # noqa: E402
-                                     wkv6_ref)
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
+                                     rglru_scan_ref, spmm_ell_ref,
+                                     spmv_ell_ref, wkv6_ref)
+from repro_torch.kernels.rglru import rglru_scan  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import blocks, init_params, model  # noqa: E402
+from repro_torch.models import blocks, init_params, layers, model  # noqa: E402
 from repro_torch.pipeline import (TrafficConfig, botnet_truth,  # noqa: E402
                                   records_to_tsv, synth_packets)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12           # H100 SXM bf16 tensor cores, dense
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6     # fp32, another summation order
 PATH_RTOL, PATH_ATOL = 1e-5, 1e-7
 MAIN_CFG = dict(n_hosts=512, pkt_rate=2000.0, n_bots=16, beacon_period_s=4.0,
@@ -105,6 +144,19 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT_BYTES, SERVE_NEW = \
 SERVE_S_MAX = 1024
 FORMS_RTOL, FORMS_ATOL = 1e-3, 1e-3        # chunked vs sequential WKV
 SERVE_REL = 0.1                            # bf16 path, relative norm
+RGLRU_SOURCE = "src/repro_torch/kernels/csrc/rglru.cu"
+RGLRU_REPLACES = "src/repro/kernels/rglru.py:51"
+RGLRU_SHAPES = [(8, 512, 4096), (1, 8192, 4096)]
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:72"
+# (B, S, H, KV, Dh, dtype, causal, window)
+FLASH_CASES = [(8, 512, 16, 1, 256, torch.bfloat16, True, 2048),
+               (1, 4096, 16, 1, 256, torch.bfloat16, True, 2048),
+               (2, 512, 16, 4, 128, torch.float32, True, 0)]
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # rtol = atol
+FLASH_F32_TOL = 1e-2          # bf16 output against float32 arithmetic
+RG_ARCH = "recurrentgemma-9b"
+RG_STATE_TOL = 1e-4           # layer 0 RG-LRU state, rtol = atol
 
 
 class SmokeFailure(RuntimeError):
@@ -435,10 +487,13 @@ def wkv6_at_shapes(dev: torch.device) -> list:
 # ---------------------------------------------------------------------------
 
 def params_iter(params: dict):
+    """Every parameter tensor: the top-level ones and each layer's
+    blocks' (``{"rwkv": {...}}``, ``{"rglru": {...}, "mlp": {...}}``)."""
     for key, val in params.items():
         if key == "layers":
             for layer in val:
-                yield from layer["rwkv"].values()
+                for block in layer.values():
+                    yield from block.values()
         else:
             yield val
 
@@ -446,48 +501,61 @@ def params_iter(params: dict):
 class ServeRecorder:
     """Time, and keep what they return, the model calls that the serving
     entry point makes (``serve.prefill``, ``serve.decode_step``), with the
-    wkv6 launches inside each; keep the inputs of the first ``wkv6``
-    call.  The wrapped functions still run and count."""
+    kernel launches inside each (a dict by kernel); keep the arguments of
+    the first call of each wrapper in ``wrappers`` (kernel name ->
+    (module, attribute) where the model resolves it).  The wrapped
+    functions still run and count."""
 
-    def __init__(self):
-        self.steps: list = []          # (batch, logits, ms, wkv6 launches)
-        self.wkv_args = None
+    def __init__(self, wrappers: dict):
+        self.wrappers = wrappers
+        self.steps: list = []          # (batch, logits, ms, launches)
+        self.args: dict = {}           # kernel -> (args, kwargs)
 
     def _timed(self, fn, *args, **kw):
-        k0 = ops.kernel_launches()["wkv6"]
+        k0 = ops.kernel_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, \
-            ops.kernel_launches()["wkv6"] - k0
+        k1 = ops.kernel_launches()
+        return out, time.perf_counter() - t0, {k: k1[k] - k0[k] for k in k1}
 
     def _prefill(self, params, batch, cfg, s_max):
         (logits, caches), self.prefill_s, self.prefill_launches = \
-            self._timed(self._orig[0], params, batch, cfg, s_max=s_max)
+            self._timed(self._orig["prefill"], params, batch, cfg,
+                        s_max=s_max)
         self.batch, self.logits, self.caches = batch, logits, caches
         return logits, caches
 
     def _decode(self, params, caches, batch, cfg):
-        (logits, caches), sec, n = self._timed(self._orig[1], params,
-                                               caches, batch, cfg)
+        (logits, caches), sec, n = self._timed(self._orig["decode_step"],
+                                               params, caches, batch, cfg)
         self.steps.append((batch, logits, sec * 1e3, n))
         self.last_caches = caches
         return logits, caches
 
-    def _wkv6(self, *args):
-        if self.wkv_args is None:
-            self.wkv_args = tuple(a.clone() for a in args)
-        return self._orig[2](*args)
+    def _spy(self, name, fn):
+        def spy(*args, **kw):
+            if name not in self.args:
+                self.args[name] = (tuple(a.clone() if isinstance(
+                    a, torch.Tensor) else a for a in args), dict(kw))
+            return fn(*args, **kw)
+        return spy
 
     def __enter__(self):
-        self._orig = (serve.prefill, serve.decode_step, blocks.wkv6)
+        self._orig = {"prefill": serve.prefill,
+                      "decode_step": serve.decode_step}
         serve.prefill, serve.decode_step = self._prefill, self._decode
-        blocks.wkv6 = self._wkv6
+        for name, (mod, attr) in self.wrappers.items():
+            self._orig[name] = getattr(mod, attr)
+            setattr(mod, attr, self._spy(name, self._orig[name]))
         return self
 
     def __exit__(self, *exc):
-        serve.prefill, serve.decode_step, blocks.wkv6 = self._orig
+        serve.prefill = self._orig["prefill"]
+        serve.decode_step = self._orig["decode_step"]
+        for name, (mod, attr) in self.wrappers.items():
+            setattr(mod, attr, self._orig[name])
         return False
 
 
@@ -526,44 +594,50 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
-def serve_path(dev: torch.device) -> dict:
-    """Generate through ``repro_torch.launch.serve`` with the wkv6 kernel
-    in prefill, then hold it against the plain (chunked) path on the same
-    weights, teacher-forced over the kernel path's tokens."""
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), rwkv_impl="pallas")
+def make_model(arch: str, dev: torch.device, tag: str, **impls):
+    """The full-width config of ``arch`` with ``impls`` and its seeded
+    random parameters on the card."""
+    cfg = dataclasses.replace(get_config(arch), **impls)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
-    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model},"
-        f" {cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}; "
-        f"{sum(p.numel() for p in params_iter(params)) / 1e9:.3f} B "
-        f"params made in {time.perf_counter() - t0:.2f} s")
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers "
+        f"{''.join(cfg.layer_types())}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads ({cfg.n_kv_heads} kv) of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}; {sum(p.numel() for p in params_iter(params)) / 1e9:.3f}"
+        f" B params made in {time.perf_counter() - t0:.2f} s")
+    return cfg, params
+
+
+def recorded_generate(cfg, params, wrappers: dict, tag: str):
+    """One warm-up ``generate``, then the recorded one with the launch
+    counts zeroed just before and read just after; checks the shapes, the
+    logits and that decode launched no kernel.  Returns (recorder,
+    launches, times, device shares)."""
     prompts = serve_prompts()
     serve.generate(cfg, params, prompts, max_new=2, s_max=SERVE_S_MAX)
 
     ops.reset_launches()
-    with ServeRecorder() as rec:
+    with ServeRecorder(wrappers) as rec:
         t0 = time.perf_counter()
         outs = serve.generate(cfg, params, prompts, max_new=SERVE_NEW,
                               s_max=SERVE_S_MAX)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
     launches = ops.kernel_launches()
-    log(f"[serve] kernel launches {launches}")
-    check(launches["wkv6"] == cfg.n_layers and
-          rec.prefill_launches == cfg.n_layers,
-          f"wkv6 launches {launches['wkv6']} (prefill "
-          f"{rec.prefill_launches}), want one per layer = {cfg.n_layers}")
+    log(f"[{tag}] kernel launches {launches}, in prefill "
+        f"{rec.prefill_launches}")
     check(len(rec.steps) == SERVE_NEW and
-          all(n == 0 for *_, n in rec.steps), "decode launched wkv6")
+          all(not any(n.values()) for *_, n in rec.steps),
+          f"[{tag}] decode launched a kernel")
     b, s = rec.batch["tokens"].shape
     check((b, s) == (SERVE_BATCH, SERVE_PROMPT_BYTES + 1) and
-          len(outs) == SERVE_BATCH, f"serve shapes {(b, s)}, {len(outs)}")
+          len(outs) == SERVE_BATCH, f"[{tag}] shapes {(b, s)}, {len(outs)}")
     check(rec.logits.shape == (b, 1, cfg.padded_vocab) and
           all(bool(torch.isfinite(lg).all()) for lg in
               [rec.logits] + [step[1] for step in rec.steps]),
-          "serve logits: shape / non-finite")
+          f"[{tag}] logits: shape / non-finite")
 
     decode_ms = sum(ms for *_, ms, _ in rec.steps) / len(rec.steps)
     times = {"prefill_s": rec.prefill_s,
@@ -572,7 +646,7 @@ def serve_path(dev: torch.device) -> dict:
              "decode_tok_per_s": b / decode_ms * 1e3,
              "generate_s": total_s,
              "generate_tok_per_s": b * SERVE_NEW / total_s}
-    log(f"[serve] prefill {b}x{s} tokens: {rec.prefill_s:.4f} s "
+    log(f"[{tag}] prefill {b}x{s} tokens: {rec.prefill_s:.4f} s "
         f"({times['prefill_tok_per_s']:.0f} tok/s); decode "
         f"{decode_ms:.3f} ms per step of {b} tokens "
         f"({times['decode_tok_per_s']:.1f} tok/s); generate {b}x{SERVE_NEW}"
@@ -585,14 +659,45 @@ def serve_path(dev: torch.device) -> dict:
         "decode_step": device_share(lambda: model.decode_step(
             params, rec.last_caches, rec.steps[-1][0], cfg), decode_ms)}
     for name, d in busy.items():
-        log(f"[serve] profiled {name}: {d['device_kernels']} device kernels,"
-            f" {d['device_ms']} ms on the device, busy share {d['busy']}")
+        log(f"[{tag}] profiled {name}: {d['device_kernels']} device "
+            f"kernels, {d['device_ms']} ms on the device, busy share "
+            f"{d['busy']}")
+    return rec, launches, times, busy
 
-    plain = dataclasses.replace(cfg, rwkv_impl="chunked")
-    k0 = ops.kernel_launches()["wkv6"]
+
+def teacher_forced(params, rec: ServeRecorder, plain, tag: str):
+    """The plain path on the same weights over the kernel path's tokens:
+    its prefill caches, and the relative norm errors of the prefill
+    logits and every decode step's logits; it must launch no kernel."""
+    k0 = ops.kernel_launches()
     logits, caches = model.prefill(params, rec.batch, plain,
                                    s_max=SERVE_S_MAX)
-    errs = {"prefill_logits": rel_err(rec.logits, logits)}
+    prefill_caches = caches
+    errs = {"prefill_logits": rel_err(rec.logits, logits),
+            "decode_logits": []}
+    for batch, want, *_ in rec.steps:
+        logits, caches = model.decode_step(params, caches, batch, plain)
+        errs["decode_logits"].append(rel_err(want, logits))
+    torch.cuda.synchronize()
+    check(ops.kernel_launches() == k0, f"[{tag}] plain path launched a "
+          f"kernel: {k0} -> {ops.kernel_launches()}")
+    return prefill_caches, errs
+
+
+def serve_path(dev: torch.device) -> dict:
+    """Generate through ``repro_torch.launch.serve`` with the wkv6 kernel
+    in prefill, then hold it against the plain (chunked) path on the same
+    weights, teacher-forced over the kernel path's tokens."""
+    cfg, params = make_model(SERVE_ARCH, dev, "serve", rwkv_impl="pallas")
+    rec, launches, times, busy = recorded_generate(
+        cfg, params, {"wkv6": (blocks, "wkv6")}, "serve")
+    check(launches["wkv6"] == cfg.n_layers and
+          rec.prefill_launches["wkv6"] == cfg.n_layers,
+          f"wkv6 launches {launches['wkv6']} (prefill "
+          f"{rec.prefill_launches}), want one per layer = {cfg.n_layers}")
+
+    plain = dataclasses.replace(cfg, rwkv_impl="chunked")
+    caches, errs = teacher_forced(params, rec, plain, "serve")
     w0, p0 = rec.caches[0].wkv, caches[0].wkv
     check(torch.allclose(w0, p0, rtol=FORMS_RTOL, atol=FORMS_ATOL),
           f"layer 0 WKV state: max abs err {float((w0 - p0).abs().max())}"
@@ -600,12 +705,6 @@ def serve_path(dev: torch.device) -> dict:
     errs["layer0_state_max_abs"] = float((w0 - p0).abs().max())
     errs["state"] = [rel_err(a.wkv, c.wkv)
                      for a, c in zip(rec.caches, caches)]
-    errs["decode_logits"] = []
-    for batch, want, *_ in rec.steps:
-        logits, caches = model.decode_step(params, caches, batch, plain)
-        errs["decode_logits"].append(rel_err(want, logits))
-    torch.cuda.synchronize()
-    check(ops.kernel_launches()["wkv6"] == k0, "plain path launched wkv6")
     worst = max([errs["prefill_logits"]] + errs["state"] +
                 errs["decode_logits"])
     log(f"[serve] kernel vs plain path, relative norm error: prefill "
@@ -617,7 +716,7 @@ def serve_path(dev: torch.device) -> dict:
     check(worst <= SERVE_REL,
           f"kernel and plain serve paths differ by {worst:.3g} > {SERVE_REL}")
 
-    main_shape = measure_wkv6(*rec.wkv_args, plain_iters=3)
+    main_shape = measure_wkv6(*rec.args["wkv6"][0], plain_iters=3)
     log(f"[serve] wkv6 on layer 0's inputs {main_shape['shape']}: kernel "
         f"{main_shape['ms']:.4f} ms, plain {main_shape['plain_ms']:.4f} ms,"
         f" max abs err {main_shape['max_abs_err']:.3g} (max |plain| "
@@ -625,6 +724,229 @@ def serve_path(dev: torch.device) -> dict:
     return dict(launches=launches["wkv6"], times=times, errs=errs,
                 busy=busy, main_shape=main_shape)
 
+
+# ---------------------------------------------------------------------------
+# Phase 7: rglru_scan at the serve shape and at a long sequence.
+# ---------------------------------------------------------------------------
+
+def rglru_inputs(shape, dev, seed: int = 0):
+    """a = exp(-8 softplus(Λ) r) with Λ the model's init (0.9..5 over the
+    channels) and r a sigmoid of a normal; b = 0.1 normal."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lam = torch.linspace(0.9, 5.0, shape[2], device=dev)
+    r = torch.sigmoid(torch.randn(shape, generator=g, device=dev))
+    a = torch.exp(-8.0 * torch.nn.functional.softplus(lam) * r)
+    b = torch.randn(shape, generator=g, device=dev) * 0.1
+    return a, b
+
+
+def rglru_bound(shape) -> tuple[float, str]:
+    """Least time for one scan on an H100: a and b read once and the
+    states written once, fp32; a multiply and an add per element."""
+    n = shape[0] * shape[1] * shape[2]
+    t_bytes = 12 * n / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * n / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def measure_rglru(a, b, plain_iters: int) -> dict:
+    """Kernel against its plain version on the same inputs (equal bit for
+    bit), then both timed; raises on any difference."""
+    got = rglru_scan(a, b)
+    want = rglru_scan_ref(a, b)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"rglru_scan: shape {tuple(got.shape)} / non-finite")
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"rglru_scan: max abs err {err}, want 0")
+    out = {"shape": list(a.shape), "max_abs_err": err,
+           "max_abs": float(want.abs().max()),
+           "ms": timed_ms(lambda: rglru_scan(a, b)),
+           "plain_ms": timed_ms(lambda: rglru_scan_ref(a, b),
+                                iters=plain_iters, warmup=1),
+           "library_ms": None}
+    out["bound_ms"], out["bound_by"] = rglru_bound(a.shape)
+    return out
+
+
+def rglru_at_shapes(dev: torch.device) -> list:
+    results = []
+    for shape, plain_iters in zip(RGLRU_SHAPES, (3, 1)):
+        m = measure_rglru(*rglru_inputs(shape, dev), plain_iters=plain_iters)
+        results.append(m)
+        log(f"[rglru] {shape}: kernel {m['ms']:.4f} ms, plain "
+            f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_by']}), max abs err {m['max_abs_err']:.3g}")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: flash_attention at the serve shape, a long sequence, GQA f32.
+# ---------------------------------------------------------------------------
+
+def flash_inputs(case, dev, seed: int = 0):
+    b, s, h, kv, dh, dtype, _, _ = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, s, h, dh), generator=g, device=dev)
+    k, v = (torch.randn((b, s, kv, dh), generator=g, device=dev)
+            for _ in range(2))
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(row, key) pairs a mask lets through, rows and keys at 0..S-1."""
+    i = np.arange(sq)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    hi = np.minimum(sk - 1, i) if causal else np.full_like(i, sk - 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_bound(q, k, causal: bool, window: int) -> tuple[float, str]:
+    """Least time for one attention call on an H100: q, k, v read and o
+    written once; 4*Dh flops per visible (row, key) pair (q.k and p.v)
+    at the peak of the inputs' type (bf16 tensor cores, or fp32)."""
+    b, sq, h, dh = q.shape
+    flops = 4 * dh * b * h * visible_pairs(sq, k.shape[1], causal, window)
+    n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa_call(q, k, v):
+    """The library yardstick: one ``scaled_dot_product_attention`` call,
+    causal, on the same values with k and v expanded to q's heads, in
+    its (B, H, S, Dh) layout (prepared outside the timed call)."""
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(g, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(g, dim=2).transpose(1, 2)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+
+
+def measure_flash(q, k, v, causal: bool = True, window: int = 0,
+                  plain_iters: int = 5) -> dict:
+    """Kernel against its plain version on the same inputs (and, for
+    bf16, on the same values in float32), then kernel, plain version and
+    (where it computes the same function) the library call timed."""
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    tag = f"flash_attention {tuple(q.shape)} kv {k.shape[2]} {q.dtype}"
+    check(got.shape == q.shape and got.dtype == q.dtype and
+          bool(torch.isfinite(got).all()), f"{tag}: shape / dtype / "
+          f"non-finite")
+    tol = FLASH_TOL[q.dtype]
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"{tag}: max abs err {err} beyond rtol=atol={tol}")
+    out = {"shape": list(q.shape), "kv_heads": k.shape[2],
+           "dtype": str(q.dtype).replace("torch.", ""), "causal": causal,
+           "window": window, "max_abs_err": err}
+    if q.dtype != torch.float32:
+        want32 = flash_attention_ref(q.float(), k.float(), v.float(), causal,
+                                     window)
+        err32 = float((got.float() - want32).abs().max())
+        check(torch.allclose(got.float(), want32, rtol=FLASH_F32_TOL,
+                             atol=FLASH_F32_TOL),
+              f"{tag}: max abs err {err32} against float32 arithmetic "
+              f"beyond rtol=atol={FLASH_F32_TOL}")
+        out["max_abs_err_vs_f32"] = err32
+        del want32
+    del got, want
+    out["ms"] = timed_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                                 window=window))
+    out["plain_ms"] = timed_ms(lambda: flash_attention_ref(
+        q, k, v, causal, window), iters=plain_iters, warmup=1)
+    same = causal and (window == 0 or window >= q.shape[1])
+    out["library_ms"] = timed_ms(sdpa_call(q, k, v)) if same else None
+    out["bound_ms"], out["bound_by"] = flash_bound(q, k, causal, window)
+    return out
+
+
+def flash_at_shapes(dev: torch.device) -> list:
+    results = []
+    for case in FLASH_CASES:
+        *_, causal, window = case
+        m = measure_flash(*flash_inputs(case, dev), causal=causal,
+                          window=window)
+        results.append(m)
+        log(f"[flash] {m['shape']} kv {m['kv_heads']} {m['dtype']} causal "
+            f"{causal} window {window}: kernel {m['ms']:.4f} ms, plain "
+            f"{m['plain_ms']:.4f} ms, library {m['library_ms']} ms, bound "
+            f"{m['bound_ms']:.4f} ms ({m['bound_by']}), max abs err "
+            f"{m['max_abs_err']:.3g}")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: serve recurrentgemma-9b at full width.
+# ---------------------------------------------------------------------------
+
+def rg_serve_path(dev: torch.device) -> dict:
+    """Generate through ``repro_torch.launch.serve`` with rglru_scan and
+    flash_attention in prefill, then hold it against the plain path (log-
+    depth scan, naive attention) on the same weights, teacher-forced over
+    the kernel path's tokens."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = make_model(RG_ARCH, dev, "rg-serve", rglru_impl="pallas",
+                             attention_impl="pallas")
+    types = cfg.layer_types()
+    n_r, n_l = types.count("R"), types.count("L")
+    check((n_r, n_l) == (26, 12), f"layer types {types}")
+    rec, launches, times, busy = recorded_generate(
+        cfg, params, {"rglru_scan": (blocks, "rglru_scan"),
+                      "flash_attention": (layers, "flash_attention")},
+        "rg-serve")
+    want = {k: 0 for k in launches}
+    want.update(rglru_scan=n_r, flash_attention=n_l)
+    check(launches == want and rec.prefill_launches == want,
+          f"launches {launches} (prefill {rec.prefill_launches}), want "
+          f"{want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[rg-serve] peak device memory {peak_gb:.2f} GB")
+
+    plain = dataclasses.replace(cfg, rglru_impl="scan",
+                                attention_impl="chunked")
+    caches, errs = teacher_forced(params, rec, plain, "rg-serve")
+    h0, p0 = rec.caches[0].h, caches[0].h
+    errs["layer0_state_max_abs"] = float((h0 - p0).abs().max())
+    check(torch.allclose(h0, p0, rtol=RG_STATE_TOL, atol=RG_STATE_TOL),
+          f"layer 0 RG-LRU state: max abs err "
+          f"{errs['layer0_state_max_abs']} beyond rtol=atol={RG_STATE_TOL}")
+    errs["cache"] = []
+    for li, (a, c) in enumerate(zip(rec.caches, caches)):
+        for name, x, y in zip(a._fields, a, c):
+            if name in ("pos", "index"):
+                check(x == y if name == "index" else torch.equal(x, y),
+                      f"layer {li} cache {name} differs")
+            else:
+                errs["cache"].append(rel_err(x, y))
+    worst = max([errs["prefill_logits"]] + errs["cache"] +
+                errs["decode_logits"])
+    log(f"[rg-serve] kernel vs plain path, relative norm error: prefill "
+        f"logits {errs['prefill_logits']:.3g}, caches "
+        f"{min(errs['cache']):.3g}..{max(errs['cache']):.3g}, decode "
+        f"logits {min(errs['decode_logits']):.3g}.."
+        f"{max(errs['decode_logits']):.3g}; layer 0 state max abs "
+        f"{errs['layer0_state_max_abs']:.3g}")
+    check(worst <= SERVE_REL,
+          f"kernel and plain serve paths differ by {worst:.3g} > {SERVE_REL}")
+
+    args, _ = rec.args["rglru_scan"]
+    main_rglru = measure_rglru(*args, plain_iters=3)
+    args, kw = rec.args["flash_attention"]
+    main_flash = measure_flash(*args, **kw)
+    for name, m in (("rglru_scan", main_rglru),
+                    ("flash_attention", main_flash)):
+        log(f"[rg-serve] {name} on its first layer's inputs {m['shape']}: "
+            f"kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
+            f"library {m['library_ms']}, max abs err {m['max_abs_err']:.3g}")
+    return dict(launches=launches, times=times, errs=errs, busy=busy,
+                peak_gb=peak_gb, main_rglru=main_rglru,
+                main_flash=main_flash)
 
 
 # ---------------------------------------------------------------------------
@@ -675,6 +997,13 @@ def main() -> int:
     log("[compare] card and CPU main paths agree")
 
     served = serve_path(dev)
+    rglru = rglru_at_shapes(dev)
+    flash = flash_at_shapes(dev)
+    gc.collect()                      # the rwkv6 weights went with phase 6
+    torch.cuda.empty_cache()
+    log(f"[rg-serve] device memory before: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    rg = rg_serve_path(dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -716,6 +1045,45 @@ def main() -> int:
                       ("shape", "ms", "plain_ms", "bound_ms",
                        "max_abs_err")},
         "serve": dict(served["times"], device=served["busy"]),
+    })
+    head, long_ = rglru
+    main_r = rg["main_rglru"]
+    rows.append({
+        "name": "rglru_scan", "route": "cuda", "source": RGLRU_SOURCE,
+        "replaces": RGLRU_REPLACES, "launches": rg["launches"]["rglru_scan"],
+        "max_abs_err": max(head["max_abs_err"], long_["max_abs_err"],
+                           main_r["max_abs_err"]),
+        "ms": head["ms"], "kernel_ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None,
+        "library": "none: no single PyTorch call computes the recurrence",
+        "shape": head["shape"],
+        "long": {k: long_[k] for k in ("shape", "ms", "plain_ms",
+                                       "bound_ms", "max_abs_err")},
+        "main_path": {k: main_r[k] for k in ("shape", "ms", "plain_ms",
+                                             "bound_ms", "max_abs_err")},
+    })
+    head, long_, gqa = flash
+    main_f = rg["main_flash"]
+    keys = ("shape", "kv_heads", "dtype", "window", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "max_abs_err")
+    rows.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES,
+        "launches": rg["launches"]["flash_attention"],
+        "max_abs_err": max(m["max_abs_err"] for m in flash + [main_f]),
+        "ms": head["ms"], "kernel_ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "library": "scaled_dot_product_attention(is_causal=True), k and v "
+                   "expanded to 16 heads",
+        "shape": head["shape"], "kv_heads": head["kv_heads"],
+        "max_abs_err_vs_f32": head["max_abs_err_vs_f32"],
+        "long": {k: long_[k] for k in keys},
+        "gqa_f32": {k: gqa[k] for k in keys},
+        "main_path": {k: main_f[k] for k in keys},
+        "serve": dict(rg["times"], device=rg["busy"],
+                      peak_gb=rg["peak_gb"]),
     })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

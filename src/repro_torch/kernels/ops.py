@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _VOIDP = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
 # C signatures of every exported function, by library.
 SIGNATURES = {
     "ell": {
@@ -44,11 +45,19 @@ SIGNATURES = {
         "wkv6_forward": (_VOIDP,) * 7 + (_I64, _I64, _INT, _INT, _I64, _I64,
                                           _I64, _VOIDP),
     },
+    "rglru": {
+        "rglru_forward": (_VOIDP,) * 3 + (_I64,) * 5 + (_VOIDP,),
+    },
+    "flash_attention": {
+        "flash_attention_forward": (_VOIDP,) * 4 + (_I64,) * 3 + (_INT,) * 3
+        + (_I64,) * 9 + (_INT, _INT, _F32, _INT, _VOIDP),
+    },
 }
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
-_LAUNCHES = {"spmv_ell": 0, "spmm_ell": 0, "wkv6": 0}
+_LAUNCHES = {"spmv_ell": 0, "spmm_ell": 0, "wkv6": 0, "rglru_scan": 0,
+             "flash_attention": 0}
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -59,3 +59,29 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     state0 = torch.zeros((b, h, dh, dh), dtype=torch.float32,
                          device=r.device)
     return wkv_scan(*(t.to(torch.float32) for t in (r, k, v, w, u)), state0)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t from h_0 = 0, one step at a time, in
+    float32; returns ``a.dtype``.  a, b: (B, S, C)."""
+    af, bf = a.to(torch.float32), b.to(torch.float32)
+    h = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32,
+                    device=a.device)
+    out = torch.empty(af.shape, dtype=torch.float32, device=a.device)
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        out[:, t] = h
+    return out.to(a.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """The model's ``attention_naive`` with positions 0..S-1 for both q
+    and k (the kernel derives them from indices).  q: (B, Sq, H, Dh);
+    k, v: (B, Sk, KV, Dh)."""
+    from ..models.layers import attention_naive
+    b, sq = q.shape[:2]
+    sk = k.shape[1]
+    q_pos = torch.arange(sq, device=q.device).expand(b, sq)
+    k_pos = torch.arange(sk, device=q.device).expand(b, sk)
+    return attention_naive(q, k, v, q_pos, k_pos, causal, window)

@@ -1,6 +1,7 @@
 """Model blocks with init + apply, as the JAX package's ``models/blocks.py``
-has them.  Only the RWKV-6 block (Finch: data-dependent decay time-mix
-plus channel-mix) is ported so far.
+has them: the attention block (global and sliding-window, with a ring
+cache), the SwiGLU MLP, the RG-LRU recurrent block (Griffin /
+recurrentgemma) and the RWKV-6 block (Finch).
 
 Every block follows the same contract::
 
@@ -9,18 +10,27 @@ Every block follows the same contract::
 
 ``gen`` is a ``torch.Generator``; parameters are made on its device and
 stored float32, and cast to ``cfg.dtype`` at use (``_c``).  ``ctx``
-carries positions, the mode and the layer's decode cache.  The RWKV
-cache is the (B, H, Dh, Dh) wkv state (k-major) and the (B, D)
-token-shift states of the two mixes.
+carries positions, the mode and the layer's decode cache.  Caches:
+
+* attention — (B, S_alloc, KV, Dh) K and V rings, the absolute position
+  of every slot (-1 = empty) and the next write index (a Python int);
+* RG-LRU — the (B, Dr) float32 state and the (B, conv_w-1, Dr) conv
+  tail;
+* RWKV — the (B, H, Dh, Dh) wkv state (k-major) and the (B, D)
+  token-shift states of the two mixes.
+
+Caches are updated out of place, as in JAX: a new cache is returned and
+the one passed in is left as it was.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
+from ..kernels.rglru import rglru_scan
 from ..kernels.wkv6 import wkv6
 from . import layers as L
 from .config import ModelConfig
@@ -39,7 +49,8 @@ def _dense_init(gen: torch.Generator, shape, scale=None) -> torch.Tensor:
 class Ctx:
     positions: torch.Tensor           # (B, S) absolute positions
     mode: str = "train"               # train | prefill | decode
-    cache: Optional["RWKVCache"] = None   # this layer's cache (decode)
+    # this layer's cache (decode)
+    cache: Optional[Union["AttnCache", "RGLRUCache", "RWKVCache"]] = None
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -48,6 +59,263 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _c(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:  # compute cast
     return x.to(compute_dtype(cfg))
+
+
+# =============================================================================
+# Attention block (A = global, L = sliding window)
+# =============================================================================
+
+def init_attn(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    D = cfg.d_model
+    H, KV = cfg.phys_heads, cfg.phys_kv_heads
+    Dh = cfg.resolved_head_dim
+    dev = gen.device
+    p = {
+        "ln": torch.zeros((D,), dtype=torch.float32, device=dev),
+        "wq": _dense_init(gen, (D, H * Dh)),
+        "wk": _dense_init(gen, (D, KV * Dh)),
+        "wv": _dense_init(gen, (D, KV * Dh)),
+        "wo": _dense_init(gen, (H * Dh, D)),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", H), ("bk", KV), ("bv", KV)):
+            p[name] = torch.zeros((n * Dh,), dtype=torch.float32, device=dev)
+    return p
+
+
+def head_kv_map(cfg: ModelConfig, device=None) -> torch.Tensor:
+    """Physical head → physical kv-head index, preserving the LOGICAL
+    GQA grouping for real heads (padded heads map to kv 0, masked)."""
+    groups = cfg.n_heads // cfg.n_kv_heads
+    idx = torch.zeros(cfg.phys_heads, dtype=torch.int64, device=device)
+    idx[:cfg.n_heads] = torch.arange(cfg.n_heads, device=device) // groups
+    return idx
+
+
+def head_mask(cfg: ModelConfig, dtype, device=None):
+    """(H_phys,) 1 for real heads, 0 for padding, or None without head
+    padding."""
+    if cfg.phys_heads == cfg.n_heads:
+        return None
+    return (torch.arange(cfg.phys_heads, device=device) < cfg.n_heads
+            ).to(dtype)
+
+
+def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    B, S, _ = x.shape
+    H, KV = cfg.phys_heads, cfg.phys_kv_heads
+    Dh = cfg.resolved_head_dim
+    q = x @ _c(p["wq"], cfg)
+    k = x @ _c(p["wk"], cfg)
+    v = x @ _c(p["wv"], cfg)
+    if "bq" in p:
+        q = q + _c(p["bq"], cfg)
+        k = k + _c(p["bk"], cfg)
+        v = v + _c(p["bv"], cfg)
+    return (q.reshape(B, S, H, Dh), k.reshape(B, S, KV, Dh),
+            v.reshape(B, S, KV, Dh))
+
+
+class AttnCache(NamedTuple):
+    k: torch.Tensor       # (B, S_alloc, KV, Dh) ring buffer
+    v: torch.Tensor
+    pos: torch.Tensor     # (B, S_alloc) int32 absolute positions; -1 = empty
+    index: int            # next global write position
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, s_max: int,
+                    device: torch.device, window: int = 0) -> AttnCache:
+    """Sliding-window layers allocate only ``window`` slots (a ring)."""
+    KV, Dh = cfg.phys_kv_heads, cfg.resolved_head_dim
+    s_alloc = min(window, s_max) if window else s_max
+    dt = compute_dtype(cfg)
+    return AttnCache(
+        torch.zeros((batch, s_alloc, KV, Dh), dtype=dt, device=device),
+        torch.zeros((batch, s_alloc, KV, Dh), dtype=dt, device=device),
+        torch.full((batch, s_alloc), -1, dtype=torch.int32, device=device),
+        0)
+
+
+def apply_attn(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig,
+               window: int = 0):
+    """Self-attention sublayer (pre-norm). Returns (residual_out, cache).
+
+    Decode writes the step's K/V at ring slot ``index % S_alloc`` and
+    attends naively over the ring by the slots' absolute positions;
+    prefill runs ``cfg.attention_impl`` and writes each position p of the
+    prompt's tail to slot p % S_alloc (taken from batch row 0), so decode
+    continues the ring seamlessly."""
+    h = L.rms_norm(x, _c(p["ln"], cfg), cfg.norm_eps)
+    q, k, v = _qkv(p, h, cfg)
+    kv_map = head_kv_map(cfg, x.device) \
+        if cfg.phys_heads != cfg.n_heads else None
+    q = L.rope(q, ctx.positions, cfg.rope_theta)
+    k = L.rope(k, ctx.positions, cfg.rope_theta)
+    B, S = x.shape[:2]
+    new_cache = None
+    if ctx.mode == "decode":
+        cache: AttnCache = ctx.cache
+        s_alloc = cache.k.shape[1]
+        # the slot JAX's dynamic_update_slice writes at (start clamped so
+        # the S new entries fit)
+        slot = max(0, min(cache.index % s_alloc, s_alloc - S))
+        kc, vc, pos = cache.k.clone(), cache.v.clone(), cache.pos.clone()
+        kc[:, slot:slot + S] = k
+        vc[:, slot:slot + S] = v
+        pos[:, slot:slot + S] = ctx.positions.to(torch.int32)
+        new_cache = AttnCache(kc, vc, pos, cache.index + S)
+        # ring entries carry absolute positions; -1 slots stay masked
+        out = L.attention(q, kc, vc, ctx.positions, pos, causal=True,
+                          window=window, impl="naive", kv_map=kv_map)
+    else:
+        out = L.attention(q, k, v, ctx.positions, ctx.positions,
+                          causal=True, window=window,
+                          impl=cfg.attention_impl, chunk=cfg.attention_chunk,
+                          kv_map=kv_map)
+        if ctx.mode == "prefill" and ctx.cache is not None:
+            cache = ctx.cache
+            s_alloc = cache.k.shape[1]
+            take = min(s_alloc, S)
+            tail_pos = ctx.positions[:, -take:].to(torch.int32)
+            slots = (tail_pos[0] % s_alloc).long()
+            kc, vc, pos = cache.k.clone(), cache.v.clone(), cache.pos.clone()
+            kc[:, slots] = k[:, -take:]
+            vc[:, slots] = v[:, -take:]
+            pos[:, slots] = tail_pos
+            new_cache = AttnCache(kc, vc, pos, S)
+    hm = head_mask(cfg, out.dtype, x.device)
+    if hm is not None:   # zero padded-head outputs → exact logical math
+        out = out * hm[None, None, :, None]
+    return x + out.reshape(B, S, -1) @ _c(p["wo"], cfg), new_cache
+
+
+# =============================================================================
+# MLP
+# =============================================================================
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    D, F_ = cfg.d_model, cfg.d_ff
+    return {
+        "ln": torch.zeros((D,), dtype=torch.float32, device=gen.device),
+        "w_gate": _dense_init(gen, (D, F_)),
+        "w_up": _dense_init(gen, (D, F_)),
+        "w_down": _dense_init(gen, (F_, D)),
+    }
+
+
+def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = L.rms_norm(x, _c(p["ln"], cfg), cfg.norm_eps)
+    return x + L.swiglu(h, _c(p["w_gate"], cfg), _c(p["w_up"], cfg),
+                        _c(p["w_down"], cfg))
+
+
+# =============================================================================
+# RG-LRU recurrent block (Griffin / recurrentgemma)
+# =============================================================================
+
+def init_rglru(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    D, Dr, W = cfg.d_model, cfg.d_rnn_resolved, cfg.conv_width
+    dev = gen.device
+    return {
+        "ln": torch.zeros((D,), dtype=torch.float32, device=dev),
+        "wx": _dense_init(gen, (D, Dr)),
+        "wg": _dense_init(gen, (D, Dr)),
+        "conv_k": _dense_init(gen, (W, Dr), scale=W ** -0.5),
+        "conv_b": torch.zeros((Dr,), dtype=torch.float32, device=dev),
+        "wa": _dense_init(gen, (Dr, Dr)),      # recurrence gate
+        "wi": _dense_init(gen, (Dr, Dr)),      # input gate
+        "lam": torch.linspace(0.9, 5.0, Dr, dtype=torch.float32,
+                              device=dev),     # Λ
+        "wo": _dense_init(gen, (Dr, D)),
+    }
+
+
+class RGLRUCache(NamedTuple):
+    h: torch.Tensor       # (B, Dr) float32 hidden state
+    conv: torch.Tensor    # (B, conv_w-1, Dr) conv tail
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int,
+                     device: torch.device) -> RGLRUCache:
+    Dr = cfg.d_rnn_resolved
+    return RGLRUCache(
+        torch.zeros((batch, Dr), dtype=torch.float32, device=device),
+        torch.zeros((batch, cfg.conv_width - 1, Dr),
+                    dtype=compute_dtype(cfg), device=device))
+
+
+def _rglru_gates(p: dict, xc: torch.Tensor, cfg: ModelConfig):
+    """Decay ``a`` and gated input ``b`` of the linear recurrence, both
+    float32."""
+    c_const = 8.0
+    r = torch.sigmoid((xc @ _c(p["wa"], cfg)).to(torch.float32))
+    i = torch.sigmoid((xc @ _c(p["wi"], cfg)).to(torch.float32))
+    log_a = -c_const * F.softplus(p["lam"]) * r              # (..., Dr)
+    a = torch.exp(log_a)
+    # sqrt(1-a²) normalization keeps the state scale input-independent
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-9)) * \
+        (i * xc.to(torch.float32))
+    return a, b
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan h_t = a_t h_{t-1} + b_t from h_0 = 0 along axis 1,
+    by log-depth doubling (the plain path's counterpart of JAX's
+    ``associative_scan`` over the affine maps (a, b))."""
+    S = a.shape[1]
+    av, bv = a, b
+    shift = 1
+    while shift < S:
+        a_prev = torch.cat([torch.ones_like(av[:, :shift]),
+                            av[:, :-shift]], dim=1)
+        b_prev = torch.cat([torch.zeros_like(bv[:, :shift]),
+                            bv[:, :-shift]], dim=1)
+        av, bv = av * a_prev, bv + av * b_prev
+        shift *= 2
+    return bv
+
+
+def apply_rglru(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig):
+    """Griffin recurrent block: proj → causal conv → RG-LRU → gated out.
+
+    The recurrence runs, in the JAX package's branch order: the one-step
+    update in decode with S == 1; the rglru_scan kernel in prefill with
+    ``rglru_impl="pallas"``; else :func:`linear_scan` from a zero state
+    (decode with S > 1 included, as in JAX).  Prefill builds the cache
+    only for S > 1, as JAX does."""
+    B, S, _ = x.shape
+    h_in = L.rms_norm(x, _c(p["ln"], cfg), cfg.norm_eps)
+    xb = h_in @ _c(p["wx"], cfg)
+    gate = h_in @ _c(p["wg"], cfg)
+    W = cfg.conv_width
+    new_cache = None
+    if ctx.mode == "decode":
+        cache: RGLRUCache = ctx.cache
+        conv_in = torch.cat([cache.conv, xb], dim=1)          # (B, W-1+S, Dr)
+        new_tail = conv_in[:, -(W - 1):]
+    else:
+        conv_in = F.pad(xb, (0, 0, W - 1, 0))
+        # prefill: keep the last W-1 inputs so decode continues the conv
+        new_tail = conv_in[:, -(W - 1):] if W > 1 else \
+            torch.zeros((B, 0, xb.shape[-1]), dtype=xb.dtype,
+                        device=xb.device)
+    # copied, so the cache does not keep the (B, S, Dr) activations
+    new_tail = new_tail.clone()
+    xc = sum(conv_in[:, i:i + S] * _c(p["conv_k"][i], cfg)
+             for i in range(W)) + _c(p["conv_b"], cfg)
+    a, b = _rglru_gates(p, xc, cfg)
+    if ctx.mode == "decode" and S == 1:
+        h_new = a[:, 0] * ctx.cache.h + b[:, 0]               # (B, Dr)
+        states = h_new[:, None]
+        new_cache = RGLRUCache(h_new, new_tail)
+    elif cfg.rglru_impl == "pallas" and ctx.mode == "prefill":
+        states = rglru_scan(a, b)
+    else:
+        states = linear_scan(a, b)
+    if ctx.mode == "prefill" and new_cache is None and S > 1:
+        new_cache = RGLRUCache(states[:, -1].clone(), new_tail)
+    out = states.to(x.dtype) * F.gelu(gate, approximate="tanh")
+    return x + out @ _c(p["wo"], cfg), new_cache
 
 
 # =============================================================================

@@ -1,11 +1,27 @@
-"""Core neural layers the port's model families need.
+"""Core neural layers — the JAX package's ``models/layers.py`` on PyTorch.
 
-Only :func:`rms_norm` so far (the RWKV-6 family uses no attention).  The
-JAX package's sharding constraints have no counterpart on one device.
+Attention implementations, as there:
+
+* ``naive``   — materializes (S, S) scores;
+* ``chunked`` — two-level blocked online-softmax over Q and KV blocks;
+* ``chunked_tri`` — the same, skipping KV blocks that are fully masked;
+* ``pallas``  — the ``flash_attention`` kernel where its preconditions
+  hold (:func:`_pallas_attention_ok`), else ``chunked``.
+
+JAX's bf16 einsums with ``preferred_element_type=float32`` multiply bf16
+values with float32 accumulation and a float32 result; here the operands
+are upcast to float32 before the product, which computes the same
+values.  The JAX package's sharding constraints have no counterpart on
+one device.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import flash_attention
+
+NEG_INF = -1e30
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -17,3 +33,175 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(x * x, dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
     return out.to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10_000.0) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, Dh), positions: (..., S)."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    angles = positions[..., None].to(torch.float32) * freq   # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]                    # over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _expand_kv(k: torch.Tensor, n_heads: int,
+               kv_map: torch.Tensor = None) -> torch.Tensor:
+    """GQA: repeat KV heads to match query heads, (B,S,KV,Dh)→(B,S,H,Dh),
+    each kv head serving H/KV consecutive query heads.  ``kv_map``
+    (head-padded archs) gives an explicit head→kv index."""
+    if kv_map is not None:
+        return k.index_select(2, kv_map.to(k.device))
+    kv = k.shape[2]
+    if kv == n_heads:
+        return k
+    return k.repeat_interleave(n_heads // kv, dim=2)
+
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: int = 0) -> torch.Tensor:
+    """(…,Sq,Sk) additive float32 bias: 0 where visible, NEG_INF where
+    masked.  k_pos < 0 marks invalid (unwritten ring-buffer) cache slots."""
+    d = q_pos[..., :, None] - k_pos[..., None, :]
+    ok = (k_pos >= 0)[..., None, :]
+    if causal:
+        ok = ok & (d >= 0)
+    if window:
+        ok = ok & (d < window)
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def attention_naive(q, k, v, q_pos, k_pos, causal: bool = True,
+                    window: int = 0, kv_map=None) -> torch.Tensor:
+    """Reference attention. q: (B,Sq,H,Dh) k,v: (B,Sk,KV,Dh)."""
+    h = q.shape[2]
+    k = _expand_kv(k, h, kv_map)
+    v = _expand_kv(v, h, kv_map)
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    scores = scores + _mask_bias(q_pos, k_pos, causal, window)[:, None]
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _online_block(q_blk, k_blk, v_blk, bias, carry):
+    """One online-softmax update. q_blk:(B,Bq,H,Dh), k/v:(B,Ck,H,Dh),
+    bias:(B,Bq,Ck) or broadcastable; carry=(m,l,acc)."""
+    m, l, acc = carry
+    scale = q_blk.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q_blk.to(torch.float32),
+                     k_blk.to(torch.float32)) * scale
+    s = s + bias[:, None]                       # (B,H,Bq,Ck)
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + torch.sum(p, dim=-1)
+    pv = torch.einsum("bhqk,bkhd->bhqd",
+                      p.to(v_blk.dtype).to(torch.float32),
+                      v_blk.to(torch.float32))
+    return m_new, l_new, acc * alpha[..., None] + pv
+
+
+def attention_chunked(q, k, v, q_pos, k_pos, causal: bool = True,
+                      window: int = 0, chunk: int = 1024,
+                      triangular: bool = False, kv_map=None) -> torch.Tensor:
+    """Blocked online-softmax attention (flash-style).
+
+    ``triangular=True`` skips KV blocks that are fully masked (causal
+    upper triangle / outside the sliding window) for each Q block.
+    """
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    k = _expand_kv(k, h, kv_map)
+    v = _expand_kv(v, h, kv_map)
+    bq = min(chunk, sq)
+    ck = min(chunk, sk)
+    # pad ragged edges; padded K slots get k_pos = -1 (always masked) and
+    # padded Q rows are sliced off the output.
+    sq0 = sq
+    if sq % bq:
+        pad = bq - sq % bq
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad))
+        sq += pad
+    if sk % ck:
+        pad = ck - sk % ck
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=-1)
+        sk += pad
+    n_q, n_k = sq // bq, sk // ck
+    kb = k.reshape(b, n_k, ck, h, dh)
+    vb = v.reshape(b, n_k, ck, h, dh)
+    kp = k_pos.reshape(*k_pos.shape[:-1], n_k, ck)
+    qb = q.reshape(b, n_q, bq, h, dh)
+    qp = q_pos.reshape(*q_pos.shape[:-1], n_q, bq)
+
+    def q_block(i, lo, hi):
+        """Q block i against KV blocks [lo, hi)."""
+        carry = (torch.full((b, h, bq), NEG_INF, dtype=torch.float32,
+                            device=q.device),
+                 torch.zeros((b, h, bq), dtype=torch.float32,
+                             device=q.device),
+                 torch.zeros((b, h, bq, dh), dtype=torch.float32,
+                             device=q.device))
+        for j in range(lo, hi):
+            bias = _mask_bias(qp[:, i], kp[:, j], causal, window)
+            carry = _online_block(qb[:, i], kb[:, j], vb[:, j], bias, carry)
+        _, l, acc = carry
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        return out.transpose(1, 2).to(q.dtype)          # (B,Bq,H,Dh)
+
+    outs = []
+    for i in range(n_q):
+        lo, hi = 0, n_k
+        if triangular:
+            if causal and window:
+                lo = max(0, (i * bq - window) // ck)
+            if causal:
+                hi = min(i * bq // ck + 1, n_k)
+        outs.append(q_block(i, lo, hi))
+    return torch.cat(outs, dim=1)[:, :sq0]
+
+
+def attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
+              window: int = 0, impl: str = "chunked", chunk: int = 1024,
+              kv_map=None) -> torch.Tensor:
+    """Dispatch in the JAX package's order: ``pallas`` runs the
+    ``flash_attention`` kernel wherever the JAX package runs its Pallas
+    kernel; else ``naive`` for short sequences."""
+    if impl == "pallas" and _pallas_attention_ok(q, k, chunk, kv_map):
+        return flash_attention(q, k, v, causal=causal, window=window)
+    if impl == "naive" or q.shape[1] <= chunk:
+        return attention_naive(q, k, v, q_pos, k_pos, causal, window,
+                               kv_map=kv_map)
+    if impl in ("chunked", "pallas"):
+        return attention_chunked(q, k, v, q_pos, k_pos, causal, window,
+                                 chunk=chunk, triangular=False,
+                                 kv_map=kv_map)
+    if impl == "chunked_tri":
+        return attention_chunked(q, k, v, q_pos, k_pos, causal, window,
+                                 chunk=chunk, triangular=True, kv_map=kv_map)
+    raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def _pallas_attention_ok(q, k, chunk, kv_map) -> bool:
+    """Kernel preconditions, as the JAX package states them: no GQA remap
+    table, block-divisible seqs, fresh contiguous positions (the kernel
+    derives positions from indices — ring-buffer decode uses the naive
+    path)."""
+    bq = min(chunk, 256, q.shape[1])
+    bk = min(chunk, 256, k.shape[1])
+    return (kv_map is None and q.shape[1] > 1
+            and q.shape[1] % bq == 0 and k.shape[1] % bk == 0
+            and q.shape[2] % k.shape[2] == 0)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down

@@ -1,13 +1,15 @@
 """Model assembly: init, forward, prefill/decode — the JAX package's
-``models/model.py`` on PyTorch, for the families the port has blocks for
-(RWKV-6 so far; other block types, MoE, encoder–decoder and vision
-prefixes raise ``NotImplementedError``).
+``models/model.py`` on PyTorch, for the block types the port has:
+global and sliding-window attention with a SwiGLU MLP (``A``, ``L``),
+RG-LRU with a SwiGLU MLP (``R``) and RWKV-6 (``W``).  MoE,
+encoder–decoder and vision prefixes raise ``NotImplementedError``.
 
 Parameters are a dict: ``embed`` (V, D), ``final_norm`` (D,), ``head``
-(D, V) unless tied, and ``layers``, one dict per layer (``{"rwkv":
-{...}}``) — the JAX package's layer groups stacked for ``lax.scan``
-become a list walked by a Python loop.  Decode caches are a list with
-one entry per layer, likewise.
+(D, V) unless tied, and ``layers``, one dict per layer (``{"attn": ...,
+"mlp": ...}``, ``{"rglru": ..., "mlp": ...}`` or ``{"rwkv": ...}``) —
+the JAX package's layer groups stacked for ``lax.scan`` become a list
+walked by a Python loop.  Decode caches are a list with one entry per
+layer, likewise.
 
 Modes:
 * ``train``   — full-sequence forward.
@@ -21,18 +23,20 @@ import torch.nn.functional as F
 
 from . import blocks as B
 from . import layers as L
-from .config import RWKV, ModelConfig
+from .config import ATTN, LOCAL_ATTN, RGLRU, RWKV, ModelConfig
+
+BLOCK_TYPES = (ATTN, LOCAL_ATTN, RGLRU, RWKV)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port has no blocks for."""
-    other = sorted(set(cfg.layer_types()) - {RWKV})
+    other = sorted(set(cfg.layer_types()) - set(BLOCK_TYPES))
     if other or cfg.moe is not None or cfg.is_encdec or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs RWKV-6 ('{RWKV}') blocks only; "
-            f"this config has block types {other or [RWKV]}, moe="
-            f"{cfg.moe is not None}, encoder layers {cfg.encoder_layers}, "
-            f"frontend {cfg.frontend!r}")
+            f"{cfg.name}: the port runs block types {BLOCK_TYPES} with a "
+            f"dense MLP and a text-only decoder; this config has unknown "
+            f"block types {other}, moe={cfg.moe is not None}, encoder "
+            f"layers {cfg.encoder_layers}, frontend {cfg.frontend!r}")
 
 
 # =============================================================================
@@ -40,6 +44,10 @@ def check_supported(cfg: ModelConfig) -> None:
 # =============================================================================
 
 def _init_layer(ltype: str, cfg: ModelConfig, gen: torch.Generator) -> dict:
+    if ltype in (ATTN, LOCAL_ATTN):
+        return {"attn": B.init_attn(cfg, gen), "mlp": B.init_mlp(cfg, gen)}
+    if ltype == RGLRU:
+        return {"rglru": B.init_rglru(cfg, gen), "mlp": B.init_mlp(cfg, gen)}
     if ltype == RWKV:
         return {"rwkv": B.init_rwkv(cfg, gen)}
     raise NotImplementedError(ltype)
@@ -67,17 +75,39 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 def _apply_layer(ltype: str, p: dict, x: torch.Tensor, ctx: B.Ctx,
                  cfg: ModelConfig):
+    if ltype in (ATTN, LOCAL_ATTN):
+        window = cfg.window if ltype == LOCAL_ATTN else 0
+        x, cache = B.apply_attn(p["attn"], x, ctx, cfg, window=window)
+        return B.apply_mlp(p["mlp"], x, cfg), cache
+    if ltype == RGLRU:
+        x, cache = B.apply_rglru(p["rglru"], x, ctx, cfg)
+        return B.apply_mlp(p["mlp"], x, cfg), cache
     if ltype == RWKV:
         return B.apply_rwkv(p["rwkv"], x, ctx, cfg)
     raise NotImplementedError(ltype)
 
 
+def _cache_for(ltype: str, cfg: ModelConfig, batch: int, s_max: int,
+               device: torch.device):
+    if ltype == ATTN:
+        return B.init_attn_cache(cfg, batch, s_max, device)
+    if ltype == LOCAL_ATTN:
+        return B.init_attn_cache(cfg, batch, s_max, device,
+                                 window=cfg.window)
+    if ltype == RGLRU:
+        return B.init_rglru_cache(cfg, batch, device)
+    if ltype == RWKV:
+        return B.init_rwkv_cache(cfg, batch, device)
+    raise NotImplementedError(ltype)
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                device: torch.device) -> list:
-    """Decode caches, one per layer (``s_max`` sizes attention caches,
-    which the port has none of yet)."""
+    """Decode caches, one per layer; ``s_max`` sizes the attention
+    rings (sliding-window layers hold at most ``cfg.window`` slots)."""
     check_supported(cfg)
-    return [B.init_rwkv_cache(cfg, batch, device) for _ in cfg.layer_types()]
+    return [_cache_for(lt, cfg, batch, s_max, device)
+            for lt in cfg.layer_types()]
 
 
 def _run_layers(params, x, ctx: B.Ctx, cfg: ModelConfig, caches=None):

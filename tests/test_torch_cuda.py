@@ -9,7 +9,13 @@ Tolerances: rtol=1e-5, atol=1e-6 for the ELL kernels — fp32, another
 summation order (the kernel may fuse multiply-add); rtol=atol=1e-4 for
 wkv6, whose recurrence carries fp32 rounding across time steps, and for
 a small model's prefill on the card against the CPU (fp32 matmuls, TF32
-off, through two layers).
+off, through a few layers); none for rglru_scan, which rounds each
+product and sum as the plain version's two elementwise operations do;
+for flash_attention in float32 rtol=atol=2e-5 (the JAX package's own
+tolerance between its flash kernel and the naive form) and in bfloat16
+rtol=atol=1e-2 against the plain version on the same values in float32
+(the kernel computes in float32 and rounds only its output to bf16, half
+an ulp: at most 0.0078 below 4).
 """
 import dataclasses
 
@@ -22,13 +28,17 @@ from repro_torch.core import Assoc, eval_batch, lazy
 from repro_torch.core import expr as X
 from repro_torch.db import DB, put
 from repro_torch.device import set_device
-from repro_torch.kernels import ops, spmm_ell, spmm_ell_ref, spmv_ell, \
+from repro_torch.kernels import flash_attention, flash_attention_ref, ops, \
+    rglru_scan, rglru_scan_ref, spmm_ell, spmm_ell_ref, spmv_ell, \
     spmv_ell_ref, wkv6, wkv6_ref
 from repro_torch.models import init_params, prefill
 
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-6
 WKV_TOL = dict(rtol=1e-4, atol=1e-4)
+ATTN_F32_TOL = dict(rtol=2e-5, atol=2e-5)
+ATTN_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+HEAD_DIMS = (16, 64, 80, 96, 128, 256)
 RINGS = ("plus_times", "max_times")
 
 
@@ -45,6 +55,18 @@ def card():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
         = tf32
     set_device(prev)
+
+
+def to_device(tree, dev):
+    """A parameter or cache tree (dicts, lists, tuples of tensors) on
+    ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return [to_device(v, dev) for v in tree]
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(to_device(v, dev) for v in tree))
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
 def ell_case(R, C, K, seed, dev):
@@ -163,14 +185,167 @@ def test_prefill_on_card_matches_cpu(card):
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, (2, 4 * cfg.rwkv_chunk)).astype(np.int32))
     cpu_logits, cpu_caches = prefill(params, {"tokens": toks}, cfg, 64)
-    on_card = {k: v.to(card) if k != "layers" else
-               [{"rwkv": {n: t.to(card) for n, t in lay["rwkv"].items()}}
-                for lay in v] for k, v in params.items()}
     before = ops.kernel_launches()["wkv6"]
-    logits, caches = prefill(on_card, {"tokens": toks.to(card)}, cfg, 64)
+    logits, caches = prefill(to_device(params, card),
+                             {"tokens": toks.to(card)}, cfg, 64)
     torch.cuda.synchronize()
     assert ops.kernel_launches()["wkv6"] == before + cfg.n_layers
     torch.testing.assert_close(logits.cpu(), cpu_logits, **WKV_TOL)
     for got, want in zip(caches, cpu_caches):
         for g, x in zip(got, want):
             torch.testing.assert_close(g.cpu(), x, **WKV_TOL)
+
+
+def rglru_case(B, S, C, seed, dev):
+    """a in (0, 1), b small normal — as the model makes them."""
+    rng = np.random.default_rng(seed)
+    a = 1 / (1 + np.exp(-rng.normal(0, 2, (B, S, C))))
+    b = rng.normal(0, 0.1, (B, S, C))
+    return [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (a, b)]
+
+
+@pytest.mark.parametrize("B,S,C", [(2, 37, 300), (1, 1, 64), (3, 160, 4096)])
+def test_rglru_scan_matches_plain(card, B, S, C):
+    a, b = rglru_case(B, S, C, seed=S, dev=card)
+    before = ops.kernel_launches()["rglru_scan"]
+    out = rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["rglru_scan"] == before + 1
+    assert out.shape == (B, S, C) and out.dtype == torch.float32
+    torch.testing.assert_close(out, rglru_scan_ref(a, b), rtol=0, atol=0)
+
+
+def test_rglru_scan_strided_and_rejects(card):
+    a, b = rglru_case(2, 50, 128, seed=5, dev=card)
+    wide = [torch.cat([x, torch.ones_like(x)], dim=-1)[..., :128]
+            for x in (a, b)]
+    assert not wide[0].is_contiguous()
+    torch.testing.assert_close(rglru_scan(*wide), rglru_scan(a, b),
+                               rtol=0, atol=0)
+    before = ops.kernel_launches()["rglru_scan"]
+    with pytest.raises(ValueError):
+        rglru_scan(a, b.cpu())
+    with pytest.raises(TypeError):
+        rglru_scan(a.double(), b.double())
+    with pytest.raises(ValueError):
+        rglru_scan(a, b[:, :10])
+    assert ops.kernel_launches()["rglru_scan"] == before
+
+
+def attn_case(B, Sq, Sk, H, KV, Dh, dtype, seed, dev):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(0, 1, (B, Sq, H, Dh))
+    k, v = (rng.normal(0, 1, (B, Sk, KV, Dh)) for _ in range(2))
+    return [torch.from_numpy(x.astype(np.float32)).to(dev).to(dtype)
+            for x in (q, k, v)]
+
+
+def check_attention(q, k, v, causal, window):
+    """Kernel against the plain version on the same values in float32;
+    one launch, q's dtype out."""
+    before = ops.kernel_launches()["flash_attention"]
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["flash_attention"] == before + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal,
+                               window)
+    tol = ATTN_F32_TOL if q.dtype == torch.float32 else ATTN_BF16_TOL
+    torch.testing.assert_close(out.float(), want, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+def test_flash_attention_head_dims(card, Dh, dtype):
+    """Every head dim of the smoke and model configs, GQA, a ragged
+    sequence (100 is no multiple of the 32-row or 64-key tiles)."""
+    q, k, v = attn_case(2, 100, 100, 4, 2, Dh, dtype, seed=Dh, dev=card)
+    check_attention(q, k, v, causal=True, window=0)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40),
+                                           (False, 0), (False, 40)])
+@pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (8, 1)])
+def test_flash_attention_masks(card, causal, window, H, KV):
+    q, k, v = attn_case(2, 200, 200, H, KV, 64, torch.float32, seed=H + KV,
+                        dev=card)
+    check_attention(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_rows_that_see_nothing(card, causal):
+    """Sq > Sk with a window: rows i >= Sk + window - 1 see no key and
+    average every value, as the Pallas kernel and the plain version do."""
+    q, k, v = attn_case(1, 130, 40, 2, 1, 64, torch.float32, seed=7,
+                        dev=card)
+    check_attention(q, k, v, causal, window=16)
+
+
+@pytest.mark.parametrize("dtype,Dh", [(torch.bfloat16, 256),
+                                      (torch.float32, 128),
+                                      (torch.float32, 256)])
+def test_flash_attention_tiles_past_48kb(card, dtype, Dh):
+    """K and V tiles of 64 keys above the 48 KB static shared-memory
+    limit (64, 64 and 128 KB) launch and compute: the kernel raises its
+    dynamic limit before the launch."""
+    assert 2 * 64 * Dh * torch.finfo(dtype).bits // 8 > 48 * 1024
+    q, k, v = attn_case(1, 512, 512, 16, 1, Dh, dtype, seed=3, dev=card)
+    check_attention(q, k, v, causal=True, window=2048)
+
+
+def test_flash_attention_strided_views(card):
+    """q, k and v read through their strides (views of wider tensors)
+    give the contiguous inputs' result exactly."""
+    q, k, v = attn_case(2, 96, 96, 4, 2, 64, torch.bfloat16, seed=9,
+                        dev=card)
+    views = [torch.cat([x, torch.zeros_like(x)], dim=2)[:, :, :x.shape[2]]
+             for x in (q, k, v)]
+    assert not views[0].is_contiguous()
+    torch.testing.assert_close(flash_attention(*views, window=40),
+                               flash_attention(q, k, v, window=40),
+                               rtol=0, atol=0)
+
+
+def test_flash_attention_rejects(card):
+    q, k, v = attn_case(1, 32, 32, 4, 2, 64, torch.float32, seed=1,
+                        dev=card)
+    before = ops.kernel_launches()["flash_attention"]
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                        v[..., :12].contiguous())
+    with pytest.raises(ValueError):
+        flash_attention(q[:, :, :3].contiguous(), k, v)
+    wide = torch.cat([k, k], dim=-1)
+    with pytest.raises(ValueError):       # k not 16-byte aligned
+        flash_attention(q, wide[..., 2:66], v)
+    assert ops.kernel_launches()["flash_attention"] == before
+
+
+def test_recurrentgemma_prefill_on_card_matches_cpu(card):
+    """A small recurrentgemma prefill through both kernels against the
+    same call on the CPU (plain versions): 5 RG-LRU and 2 local-attention
+    layers in the smoke config's RRL RRL R."""
+    cfg = dataclasses.replace(smoke_config("recurrentgemma-9b"),
+                              rglru_impl="pallas", attention_impl="pallas")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 32)).astype(np.int32))
+    cpu_logits, cpu_caches = prefill(params, {"tokens": toks}, cfg, 64)
+    before = ops.kernel_launches()
+    logits, caches = prefill(to_device(params, card),
+                             {"tokens": toks.to(card)}, cfg, 64)
+    torch.cuda.synchronize()
+    after = ops.kernel_launches()
+    assert after["rglru_scan"] - before["rglru_scan"] == 5
+    assert after["flash_attention"] - before["flash_attention"] == 2
+    torch.testing.assert_close(logits.cpu(), cpu_logits, **WKV_TOL)
+    for got, want in zip(caches, cpu_caches):
+        for g, x in zip(got, want):
+            if isinstance(x, torch.Tensor):
+                torch.testing.assert_close(g.cpu(), x, **WKV_TOL)
+            else:
+                assert g == x

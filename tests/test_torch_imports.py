@@ -59,7 +59,9 @@ def test_imports_with_jax_and_reference_blocked():
 
 @pytest.mark.parametrize("module", [
     "repro_torch.models", "repro_torch.configs", "repro_torch.data",
-    "repro_torch.launch.serve"])
+    "repro_torch.launch.serve", "repro_torch.models.layers",
+    "repro_torch.models.blocks", "repro_torch.kernels.rglru",
+    "repro_torch.kernels.flash_attention"])
 def test_serving_modules_import_with_jax_and_reference_blocked(module):
     """The serving slice's packages import on their own, and resolve
     every config, with jax and the JAX package made unimportable."""

@@ -106,8 +106,9 @@ class TestSpmvEll:
         ecols, evals = ell_case(8, 16, 3, seed=2)
         spmv_ell(t(ecols), t(evals), t(xvec(16, seed=2)))
         spmm_ell(t(ecols), t(evals), t(xvec(16, seed=2, b=3)))
-        assert ops.kernel_launches() == {"spmv_ell": 0, "spmm_ell": 0,
-                                         "wkv6": 0}
+        assert ops.kernel_launches() == {
+            "spmv_ell": 0, "spmm_ell": 0, "wkv6": 0, "rglru_scan": 0,
+            "flash_attention": 0}
 
 
 class TestCsrToEll:

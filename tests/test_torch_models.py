@@ -1,10 +1,13 @@
-"""The port's RWKV-6 serving path against the JAX package's, at the smoke
-config in float32, on the same weights (the JAX tree carried across by
-``params_from_jax``) and the same numpy inputs.
+"""The port's serving path against the JAX package's, at the smoke
+configs in float32, on the same weights (the JAX tree carried across by
+``params_from_jax``) and the same numpy inputs: RWKV-6, and the
+recurrentgemma hybrid (RG-LRU + local attention) with the dense
+attention families.
 
-The JAX package's ``rwkv_impl="pallas"`` runs its Pallas kernel in
-interpret mode; the port's runs the ``wkv6`` wrapper, which on CPU
-tensors is the plain sequential recurrence.
+The JAX package's ``*_impl="pallas"`` runs its Pallas kernels in
+interpret mode; the port's runs the ``wkv6``, ``rglru_scan`` and
+``flash_attention`` wrappers, which on CPU tensors are the plain
+versions.
 
 Tolerances, with their reasons:
 * ``LIKE_TOL`` rtol=atol=1e-4 — the same WKV form in both packages,
@@ -17,6 +20,7 @@ Tolerances, with their reasons:
   the same property at 2e-2 for every family).
 """
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -191,8 +195,11 @@ def test_params_from_jax_unstacks_layers(weights):
     np.testing.assert_array_equal(p["head"].numpy(), tree["head"])
 
 
-@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCHS
-                                  if a != "rwkv6_1_6b"])
+RAISING = ("whisper_large_v3", "granite_moe_3b_a800m", "qwen3_moe_235b_a22b",
+            "phi_3_vision_4_2b")
+
+
+@pytest.mark.parametrize("arch", RAISING)
 def test_other_families_raise(arch):
     cfg = pconfigs.smoke_config(arch)
     with pytest.raises(NotImplementedError):
@@ -356,3 +363,204 @@ def test_serve_main_runs_on_cpu():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "4 tokens in" in out.stdout and "on cpu" in out.stdout
+
+
+
+# ---------------------------------------------------------------------------
+# recurrentgemma and the dense attention families
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("recurrentgemma-9b", "h2o-danube-1.8b", "phi3-mini-3.8b",
+            "internlm2-20b", "qwen2.5-14b")
+# (rglru_impl, attention_impl): the plain path and the kernel path
+PATHS = {"plain": ("scan", "chunked"), "kernels": ("pallas", "pallas")}
+PERTURB = ("ln", "final_norm", "conv_b", "bq", "bk", "bv")
+
+
+def test_supported_families():
+    """Exactly the MoE, encoder-decoder and vision families still raise."""
+    for arch in jconfigs.ARCHS:
+        cfg = pconfigs.smoke_config(arch)
+        if arch in RAISING:
+            with pytest.raises(NotImplementedError):
+                PM.check_supported(cfg)
+        else:
+            PM.check_supported(cfg)
+
+
+@functools.cache
+def family_weights(arch):
+    """The JAX smoke-config parameters of ``arch`` with the zero inits
+    (norm scales, conv bias, qkv biases) perturbed so every term counts;
+    (cfg, numpy tree), made once per arch."""
+    cfg = jconfigs.smoke_config(arch)
+    rng = np.random.default_rng(len(arch))
+
+    def perturb(path, a):
+        a = np.array(a)
+        if path[-1].key in PERTURB:
+            a = rng.normal(0, 0.1, a.shape).astype(np.float32)
+        return a
+
+    return cfg, jax.tree_util.tree_map_with_path(
+        perturb, JM.init_params(cfg, jax.random.key(0)))
+
+
+def family_cfg(arch, path):
+    cfg, tree = family_weights(arch)
+    rglru_impl, attention_impl = PATHS[path]
+    return dataclasses.replace(cfg, rglru_impl=rglru_impl,
+                               attention_impl=attention_impl), tree
+
+
+def close_family_caches(cfg, got, want_tree, tol):
+    """The port's per-layer caches against the JAX ones, stacked by
+    period slot (``groups/slot<i>``) with the remainder in ``tail``."""
+    period = len(cfg.pattern)
+    n_grouped = cfg.n_layers // period * period
+    assert len(got) == cfg.n_layers
+    for li, c in enumerate(got):
+        if li < n_grouped:
+            g, slot = divmod(li, period)
+            want = jax.tree.map(lambda a, g=g: np.asarray(a)[g],
+                                want_tree["groups"][f"slot{slot}"])
+        else:
+            want = want_tree["tail"][f"layer{li - n_grouped}"]
+        assert type(c).__name__ == type(want).__name__
+        for name, g_, w_ in zip(c._fields, c, want):
+            if name == "index":
+                assert g_ == int(w_), (li, name)
+            elif name == "pos":
+                np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
+            else:
+                close(g_, w_, tol)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_init_matches_jax_layout(arch):
+    """Same names and shapes as the JAX tree unstacked, same count."""
+    cfg, tree = family_weights(arch)
+    mine = PM.init_params(cfg, torch.Generator().manual_seed(0))
+    carried = params_from_jax(cfg, tree)
+
+    def shapes(p):
+        return ({k: v.shape for k, v in p.items() if k != "layers"},
+                [{blk: {n: a.shape for n, a in sub.items()}
+                  for blk, sub in lay.items()} for lay in p["layers"]])
+
+    assert shapes(mine) == shapes(carried)
+    n = sum(v.numel() for k, v in mine.items() if k != "layers") + sum(
+        a.numel() for lay in mine["layers"] for sub in lay.values()
+        for a in sub.values())
+    assert n == sum(a.size for a in jax.tree.leaves(tree))
+
+
+def test_params_from_jax_unstacks_the_hybrid_period():
+    """recurrentgemma's RRL period stacked over 2 groups plus an R tail:
+    layer li comes from group li // 3, slot li % 3, then tail/layer0."""
+    cfg, tree = family_weights("recurrentgemma-9b")
+    assert cfg.layer_types() == tuple("RRLRRLR")
+    p = params_from_jax(cfg, tree)
+    for li, lt in enumerate(cfg.layer_types()):
+        lay = p["layers"][li]
+        assert set(lay) == ({"attn", "mlp"} if lt == "L" else
+                            {"rglru", "mlp"})
+        want = tree["tail"]["layer0"] if li == 6 else jax.tree.map(
+            lambda a: a[li // 3], tree["groups"][f"slot{li % 3}"])
+        for blk, sub in lay.items():
+            for name, a in sub.items():
+                np.testing.assert_array_equal(a.numpy(),
+                                              np.asarray(want[blk][name]))
+
+
+@pytest.mark.parametrize("path", PATHS)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_prefill_and_decode_match(arch, path):
+    """prefill logits and caches, then three decode steps (the local
+    layers' 16-slot rings wrap), against the JAX package on the same
+    weights and tokens."""
+    cfg, tree = family_cfg(arch, path)
+    B, S, s_max = 2, 32, 48
+    toks = tokens(cfg, B, S + 3, seed=21)
+    jp, pp = jax_params(tree), params_from_jax(cfg, tree)
+    jl, jc = JM.prefill(jp, {"tokens": jnp.asarray(toks[:, :S])}, cfg,
+                        s_max=s_max)
+    pl_, pc = PM.prefill(pp, {"tokens": torch.from_numpy(toks[:, :S])}, cfg,
+                         s_max=s_max)
+    assert pl_.shape == (B, 1, cfg.padded_vocab)
+    close(pl_, jl, LIKE_TOL)
+    close_family_caches(cfg, pc, jc, LIKE_TOL)
+    for step in range(3):
+        tok = toks[:, S + step:S + step + 1]
+        pos = np.full((B, 1), S + step, np.int32)
+        jl, jc = JM.decode_step(jp, jc, {"tokens": jnp.asarray(tok),
+                                         "positions": jnp.asarray(pos)}, cfg)
+        pl_, pc = PM.decode_step(pp, pc, {"tokens": torch.from_numpy(tok),
+                                          "positions": torch.from_numpy(pos)},
+                                 cfg)
+        close(pl_, jl, LIKE_TOL)
+        close_family_caches(cfg, pc, jc, LIKE_TOL)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_decode_matches_teacher_forcing(arch):
+    """prefill(S) then decode(token S) equals forward(S+1) at S, with the
+    local layers' rings already wrapped."""
+    cfg, tree = family_cfg(arch, "plain")
+    S = 24
+    toks = torch.from_numpy(tokens(cfg, 2, S + 1, seed=22))
+    params = params_from_jax(cfg, tree)
+    x, _ = PM.forward(params, {"tokens": toks}, cfg, mode="train")
+    full = PM.logits_from_hidden(params, x[:, S:S + 1], cfg)
+    _, caches = PM.prefill(params, {"tokens": toks[:, :S]}, cfg, s_max=40)
+    dec, _ = PM.decode_step(params, caches, {
+        "tokens": toks[:, S:S + 1],
+        "positions": torch.full((2, 1), S, dtype=torch.int32)}, cfg)
+    close(dec, full, TF_TOL)
+
+
+def test_family_kernel_launch_routing(monkeypatch):
+    """recurrentgemma's prefill reaches rglru_scan once per R layer and
+    flash_attention once per L layer on the kernel path, neither on the
+    plain path, and decode reaches neither."""
+    calls = {"rglru_scan": 0, "flash_attention": 0}
+    real_scan, real_flash = PB.rglru_scan, PL.flash_attention
+
+    def scan(*a):
+        calls["rglru_scan"] += 1
+        return real_scan(*a)
+
+    def flash(*a, **kw):
+        calls["flash_attention"] += 1
+        return real_flash(*a, **kw)
+
+    monkeypatch.setattr(PB, "rglru_scan", scan)
+    monkeypatch.setattr(PL, "flash_attention", flash)
+    for path, want in [("kernels", (5, 2)), ("plain", (0, 0))]:
+        cfg, tree = family_cfg("recurrentgemma-9b", path)
+        params = params_from_jax(cfg, tree)
+        toks = torch.from_numpy(tokens(cfg, 2, 32, seed=23))
+        calls.update(rglru_scan=0, flash_attention=0)
+        _, caches = PM.prefill(params, {"tokens": toks}, cfg, s_max=40)
+        assert (calls["rglru_scan"], calls["flash_attention"]) == want, path
+        PM.decode_step(params, caches, {
+            "tokens": toks[:, :1],
+            "positions": torch.full((2, 1), 32, dtype=torch.int32)}, cfg)
+        assert (calls["rglru_scan"], calls["flash_attention"]) == want, path
+
+
+@pytest.mark.parametrize("arch,path", [(a, "kernels") for a in FAMILIES]
+                         + [("recurrentgemma-9b", "plain")])
+def test_family_generate_matches_jax(arch, path):
+    """Greedy generation gives the JAX package's tokens; the prompts'
+    padded length with BOS is 32, a multiple of the smoke attention
+    chunk, so the kernel path prefills through both kernels, and the
+    local layers' 16-slot rings wrap in prefill and in decode."""
+    cfg, tree = family_cfg(arch, path)
+    prompts = ["ip.src|10.0.0.1 tcp.dstport|666", "C2 beacon"]
+    assert max(len(p) for p in prompts) + 1 == 32
+    want = jserve.generate(cfg, jax_params(tree), prompts, max_new=10,
+                           s_max=48)
+    got = pserve.generate(cfg, params_from_jax(cfg, tree), prompts,
+                          max_new=10, s_max=48)
+    assert got == want
