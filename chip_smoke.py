@@ -82,6 +82,42 @@ Phases, each of which must pass (any failure raises, exit code != 0):
    prefill logits and all 32 decode steps' logits within a relative norm
    error of 0.1 (bf16, 38 layers), and the ring positions equal.
 
+10. ``segsum``, ``segsum_windowed`` and ``spgemm_sel`` at the same
+    window as phase 2 (run right after it): ``segsum`` over the flattened
+    pack (about 54 M ids, the -1 padding dropped by the kernel),
+    ``segsum_windowed`` over the same ids sorted (``torch.sort``, padding
+    cut off, outside the timed call), ``spgemm_sel`` with 8 random
+    columns in both rings; each against its plain version on the card
+    (segsums within rtol=1e-5, atol=1e-4 x max(1, max|plain|): float
+    atomics add in a run-dependent order; spgemm_sel within
+    rtol=atol=1e-6); times of kernel, plain version and library
+    yardstick (``index_add_`` on ids with the padding masked out
+    beforehand; ``torch.sparse.mm`` of the CSR matrix and the dense
+    one-hot selection) and the bytes bound.
+11. The paper's pipeline on the card (after phase 4): ``run_pipeline``
+    of ``repro_torch.pipeline`` over 4 capture files of 15 s of the
+    main-path traffic (about 120,000 packets, 1 MiB splits, 4 workers)
+    into ``MultiInstanceDB(2, 4)``: generate -> uncompress -> split ->
+    parse -> sort -> sparse -> ingest -> flush, per-stage bytes and
+    seconds logged.  The driver seeds file i with seed + i, so each file
+    injects its own C2: ``detect_c2`` over the union of the ``*.E.npz``
+    must rank exactly those four C2s first, and ``connections`` of each
+    must be non-empty.
+12. The new kernels over the pipeline's own tables: column degrees
+    (``segsum`` on the row-major COO columns, ``segsum_windowed`` on them
+    sorted) equal to TedgeDeg for every column key, exactly; packet
+    field counts (``segsum_windowed`` on the rows) equal to the counts
+    from E's triples; the ELL pack of E with ones against the 8
+    ``detect_c2`` hosts' ``ip.dst|`` columns: ``spgemm_sel`` column sums
+    equal to ``db.degree`` and the whole result equal to ``spmm_ell``
+    against the one-hot X (plus_times); with signed values (one selected
+    column all negative) ``spgemm_sel`` max_times equal to its plain
+    version, keeping the negative hits that ``spmm_ell`` clamps to 0.
+    Launch counts are zeroed just before phase 11 and read just after
+    this phase: exactly 1 ``segsum``, 2 ``segsum_windowed``, 2
+    ``spgemm_sel`` and 2 ``spmm_ell``, none in phase 11.  The same calls
+    on CPU tensors (plain versions) give the same arrays.
+
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 with code 2 and prints no result.
@@ -90,9 +126,13 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import glob
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -104,27 +144,32 @@ import torch  # noqa: E402
 from repro_torch import analytics  # noqa: E402
 from repro_torch.core import Assoc, eval_batch, lazy, parse_tsv, val2col  # noqa: E402
 from repro_torch.core import expr as X  # noqa: E402
-from repro_torch.db import DB, put  # noqa: E402
+from repro_torch.db import DB, MultiInstanceDB, put  # noqa: E402
 from repro_torch.device import set_device  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import spmm as kspmm  # noqa: E402
 from repro_torch.kernels import spmv as kspmv  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
-                                     rglru_scan_ref, spmm_ell_ref,
+                                     rglru_scan_ref, segsum_ref,
+                                     spgemm_sel_ref, spmm_ell_ref,
                                      spmv_ell_ref, wkv6_ref)
 from repro_torch.kernels.rglru import rglru_scan  # noqa: E402
+from repro_torch.kernels.segsum import segsum, segsum_windowed  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import blocks, init_params, layers, model  # noqa: E402
-from repro_torch.pipeline import (TrafficConfig, botnet_truth,  # noqa: E402
-                                  records_to_tsv, synth_packets)
+from repro_torch.pipeline import (PipelineConfig,  # noqa: E402
+                                  TrafficConfig, botnet_truth,
+                                  records_to_tsv, run_pipeline,
+                                  synth_packets)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM bf16 tensor cores, dense
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6     # fp32, another summation order
+RINGS = ("plus_times", "max_times")
 PATH_RTOL, PATH_ATOL = 1e-5, 1e-7
 MAIN_CFG = dict(n_hosts=512, pkt_rate=2000.0, n_bots=16, beacon_period_s=4.0,
                 seed=7)
@@ -157,6 +202,23 @@ FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # rtol = atol
 FLASH_F32_TOL = 1e-2          # bf16 output against float32 arithmetic
 RG_ARCH = "recurrentgemma-9b"
 RG_STATE_TOL = 1e-4           # layer 0 RG-LRU state, rtol = atol
+SEGSUM_SOURCE = "src/repro_torch/kernels/csrc/segsum.cu"
+SEGSUMS = {"segsum": dict(fn=segsum,
+                          replaces="src/repro/kernels/segsum.py:48"),
+           "segsum_windowed": dict(fn=segsum_windowed,
+                                   replaces="src/repro/kernels/segsum.py:107")}
+SEL_REPLACES = "src/repro/kernels/spmm.py:149"
+SEG_RTOL, SEG_ATOL = 1e-5, 1e-4    # atol x max(1, max|plain|); float atomics
+SEL_RTOL, SEL_ATOL = 1e-6, 1e-6    # another summation order
+SEL_B = 8
+PIPE_CFG = dict(n_files=4, duration_per_file_s=15.0, split_size=1 << 20,
+                n_workers=4)
+PIPE_STAGES = ("generate", "uncompress", "split", "parse", "sort", "sparse",
+               "ingest", "flush")
+# launches of phase 12: column and row degrees, then the select and its
+# one-hot cross-check in both rings
+PIPE_LAUNCHES = {"segsum": 1, "segsum_windowed": 2, "spgemm_sel": 2,
+                 "spmm_ell": 2}
 
 
 class SmokeFailure(RuntimeError):
@@ -191,6 +253,15 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound_of(n_bytes: float, ops_: float,
+             peak: float = FP32_FLOPS) -> tuple[float, str]:
+    """Least time in ms on an H100 for ``n_bytes`` moved at 3.35 TB/s and
+    ``ops_`` operations at ``peak``, and which of the two bounds it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def ell_bound(ecols: torch.Tensor, b: int) -> tuple[float, str]:
     """Least time for one ELL product on an H100, from this pack: the
     pack read once (R*K*8 bytes), each touched x / X row read once, the
@@ -199,10 +270,7 @@ def ell_bound(ecols: torch.Tensor, b: int) -> tuple[float, str]:
     touched = int(torch.unique(ecols[valid]).numel())
     r, k = ecols.shape
     n_bytes = r * k * 8 + touched * 4 * b + r * 4 * b
-    flops = 2 * int(valid.sum()) * b
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return bound_of(n_bytes, 2 * int(valid.sum()) * b)
 
 
 def csr_of(ecols: torch.Tensor, evals: torch.Tensor, n_cols: int):
@@ -216,6 +284,17 @@ def csr_of(ecols: torch.Tensor, evals: torch.Tensor, n_cols: int):
                                    check_invariants=False)
 
 
+def check_close(tag: str, got, want, rtol: float, atol: float) -> float:
+    """Shape, finiteness and allclose of ``got`` against ``want``; returns
+    the max abs error, raises beyond tolerance."""
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{tag}: shape {tuple(got.shape)} / non-finite")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    check(torch.allclose(got, want, rtol=rtol, atol=atol),
+          f"{tag}: max abs err {err} beyond rtol={rtol}, atol={atol}")
+    return err
+
+
 def compare(name: str, ecols, evals, x, ring: str) -> float:
     """Kernel against its plain version on the same inputs; returns the
     max abs error, raises beyond tolerance."""
@@ -223,13 +302,7 @@ def compare(name: str, ecols, evals, x, ring: str) -> float:
     got = spec["fn"](ecols, evals, x, ring=ring)
     want = spec["ref"](ecols, evals, x, ring)
     torch.cuda.synchronize()
-    check(got.shape == want.shape, f"{name}/{ring}: shape {tuple(got.shape)}")
-    check(bool(torch.isfinite(got).all()), f"{name}/{ring}: non-finite")
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    check(torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL),
-          f"{name}/{ring}: max abs err {err} beyond rtol={KERNEL_RTOL}, "
-          f"atol={KERNEL_ATOL}")
-    return err
+    return check_close(f"{name}/{ring}", got, want, KERNEL_RTOL, KERNEL_ATOL)
 
 
 def measure(name: str, ecols, evals, x, ring: str, library: bool) -> dict:
@@ -277,7 +350,9 @@ def window_ell(duration_s: float = 60.0, seed: int = 0, blank: float = 0.01):
     return ecols, evals, n_cols
 
 
-def kernels_at_window(dev: torch.device, duration_s: float = 60.0) -> dict:
+def kernels_at_window(dev: torch.device, duration_s: float = 60.0):
+    """Phases 2 and 10 on one window; returns the ELL kernels' results
+    and the new kernels'."""
     t0 = time.perf_counter()
     ecols_h, evals_h, n_cols = window_ell(duration_s)
     ecols = torch.from_numpy(ecols_h).to(dev)
@@ -303,7 +378,121 @@ def kernels_at_window(dev: torch.device, duration_s: float = 60.0) -> dict:
             f"{m['plain_ms']:.4f} ms, library {m['library_ms']} ms, bound "
             f"{m['bound_ms']:.4f} ms ({m['bound_by']}), max abs err "
             f"{m['max_abs_err']:.3g}")
-    return results
+    del x_pos, x_sgn, X_pos, X_sgn
+    return results, new_kernels_at_window(ecols, evals, n_cols)
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: segsum, segsum_windowed and spgemm_sel at the window.
+# ---------------------------------------------------------------------------
+
+def segsum_bound(ids: torch.Tensor, vals: torch.Tensor, n_seg: int):
+    """Each id and value read once, the output written once; one add per
+    element."""
+    n = ids.numel()
+    return bound_of(n * (ids.element_size() + vals.element_size())
+                    + n_seg * 4, n)
+
+
+def sel_bound(ecols: torch.Tensor, b: int):
+    """The pack read once (R*K*8 bytes), sel read once, the (R, b) output
+    written once; a compare and a reduction per stored slot and column."""
+    r, k = ecols.shape
+    return bound_of(r * k * 8 + b * 4 + r * b * 4,
+                    2 * int((ecols >= 0).sum()) * b)
+
+
+def measure_segsum(name: str, ids, vals, n_seg: int) -> dict:
+    """Kernel against its plain version on the same inputs, then kernel,
+    plain version and ``index_add_`` (ids outside [0, n_seg) masked out
+    beforehand, untimed) timed."""
+    fn = SEGSUMS[name]["fn"]
+    got = fn(ids, vals, n_seg)
+    want = segsum_ref(ids, vals, n_seg)
+    torch.cuda.synchronize()
+    max_plain = float(want.abs().max()) if n_seg else 0.0
+    atol = SEG_ATOL * max(1.0, max_plain)
+    out = {"shape": [ids.numel(), n_seg], "max_plain": max_plain,
+           "max_abs_err": check_close(name, got, want, SEG_RTOL, atol),
+           "tol_used": float(((got - want).abs()
+                              / (atol + SEG_RTOL * want.abs())).max())
+           if n_seg else 0.0}
+    keep = (ids >= 0) & (ids < n_seg)
+    ids_k, vals_k = ids[keep].long(), vals[keep]
+    exact = torch.zeros(n_seg, dtype=torch.float64, device=vals.device) \
+        .index_add_(0, ids_k, vals_k.double())
+    # float32 rounding of each sum, kernel's and plain version's (atomics)
+    out["err_vs_f64"] = {k: float((x.double() - exact).abs().max())
+                         if n_seg else 0.0
+                         for k, x in (("kernel", got), ("plain", want))}
+    del got, want, exact
+    out["ms"] = timed_ms(lambda: fn(ids, vals, n_seg))
+    out["plain_ms"] = timed_ms(lambda: segsum_ref(ids, vals, n_seg), iters=5)
+    out["library_ms"] = timed_ms(lambda: torch.zeros(
+        n_seg, device=vals.device).index_add_(0, ids_k, vals_k))
+    out["bound_ms"], out["bound_by"] = segsum_bound(ids, vals, n_seg)
+    return out
+
+
+def onehot_of(sel: torch.Tensor, n_cols: int) -> torch.Tensor:
+    x = torch.zeros((n_cols, sel.numel()), device=sel.device)
+    x[sel.long(), torch.arange(sel.numel(), device=sel.device)] = 1.0
+    return x
+
+
+def measure_sel(ecols, evals, sel, ring: str, n_cols: int,
+                library: bool) -> dict:
+    """Kernel against its plain version on the same inputs, then kernel,
+    plain version and (plus_times) ``torch.sparse.mm`` of the CSR matrix
+    against the dense one-hot selection timed."""
+    got = kspmm.spgemm_sel(ecols, evals, sel, ring=ring)
+    want = spgemm_sel_ref(ecols, evals, sel, ring)
+    torch.cuda.synchronize()
+    out = {"shape": list(ecols.shape) + [sel.numel()], "ring": ring,
+           "max_abs_err": check_close(f"spgemm_sel/{ring}", got, want,
+                                      SEL_RTOL, SEL_ATOL)}
+    del got, want
+    out["ms"] = timed_ms(lambda: kspmm.spgemm_sel(ecols, evals, sel,
+                                                  ring=ring))
+    out["plain_ms"] = timed_ms(lambda: spgemm_sel_ref(ecols, evals, sel,
+                                                      ring), iters=5)
+    out["library_ms"] = None
+    if library:
+        A, X1 = csr_of(ecols, evals, n_cols), onehot_of(sel, n_cols)
+        out["library_ms"] = timed_ms(lambda: torch.sparse.mm(A, X1))
+        del A, X1
+    out["bound_ms"], out["bound_by"] = sel_bound(ecols, sel.numel())
+    return out
+
+
+def new_kernels_at_window(ecols, evals, n_cols: int) -> dict:
+    ids, vals = ecols.reshape(-1), evals.reshape(-1)
+    res = {"segsum": measure_segsum("segsum", ids, vals, n_cols)}
+    s_ids, order = torch.sort(ids)
+    n_pad = int((s_ids < 0).sum())
+    s_ids = s_ids[n_pad:].contiguous()
+    s_vals = vals[order][n_pad:].contiguous()
+    del order
+    res["segsum_windowed"] = measure_segsum("segsum_windowed", s_ids, s_vals,
+                                            n_cols)
+    del s_ids, s_vals
+    rng = np.random.default_rng(2)
+    sel = torch.from_numpy(rng.choice(n_cols, SEL_B, replace=False)
+                           .astype(np.int32)).to(ecols.device)
+    res["spgemm_sel"] = {ring: measure_sel(ecols, evals, sel, ring, n_cols,
+                                           library=ring == "plus_times")
+                         for ring in RINGS}
+    for name, m in [("segsum", res["segsum"]),
+                    ("segsum_windowed", res["segsum_windowed"])] + \
+            [(f"spgemm_sel {r}", m) for r, m in res["spgemm_sel"].items()]:
+        log(f"[window] {name} {m['shape']}: kernel {m['ms']:.4f} ms, plain "
+            f"{m['plain_ms']:.4f} ms, library {m['library_ms']} ms, bound "
+            f"{m['bound_ms']:.4f} ms ({m['bound_by']}), max abs err "
+            f"{m['max_abs_err']:.3g}"
+            + (f", against float64 {m['err_vs_f64']}, share of tolerance "
+               f"used {m['tol_used']:.4f} (max |plain| {m['max_plain']})"
+               if "err_vs_f64" in m else ""))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +609,182 @@ def compare_paths(card: dict, cpu: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phases 11 and 12: the pipeline, and the new kernels over its tables.
+# ---------------------------------------------------------------------------
+
+def pipeline_path(dev: torch.device) -> dict:
+    """``run_pipeline`` into a two-instance store on the card, C2
+    recovery from its incidence files, then phase 12 over its tables.
+    Launch counts are zeroed just before and read just after."""
+    set_device("cuda")
+    traffic = TrafficConfig(**MAIN_CFG)
+    work = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    times = {}
+    try:
+        ops.reset_launches()
+        db = MultiInstanceDB(n_instances=2, tablets_per_instance=4)
+        t0 = time.perf_counter()
+        stats = run_pipeline(PipelineConfig(workdir=work, traffic=traffic,
+                                            **PIPE_CFG), db)
+        times["run_pipeline"] = time.perf_counter() - t0
+        check(tuple(stats["stages"]) == PIPE_STAGES and
+              stats["db_entries"] > 0, f"pipeline stages "
+              f"{list(stats['stages'])}, entries {stats['db_entries']}")
+        for stage, st in stats["stages"].items():
+            grow = st["bytes_out"] / st["bytes_in"] if st["bytes_in"] else None
+            log(f"[pipeline] {stage:10s} {st['n_tasks']} tasks, "
+                f"{st['bytes_in']} B -> {st['bytes_out']} B (x{grow}), "
+                f"{st['total_s']:.3f} s over its tasks")
+        t0 = time.perf_counter()
+        E = Assoc()
+        for path in sorted(glob.glob(os.path.join(work, "*.E.npz"))):
+            E = E + Assoc.load(path)
+        times["load_E"] = time.perf_counter() - t0
+        rep = step_timed(times, "detect_c2",
+                         lambda: analytics.detect_c2(E, top_k=8))
+        n_files = PIPE_CFG["n_files"]
+        c2s = [botnet_truth(dataclasses.replace(
+            traffic, seed=traffic.seed + i))["c2"] for i in range(n_files)]
+        hosts = [str(h) for h in rep.hosts]
+        check(sorted(hosts[:n_files]) == sorted(c2s),
+              f"the {n_files} files' injected C2s {c2s} are not the top "
+              f"{n_files} of detect_c2: {hosts}")
+        conns = {}
+        for c2 in c2s:
+            conns[c2] = (len(db.connections(c2)), db.degree(f"ip.dst|{c2}"))
+            check(conns[c2][0] > 0, f"no connections of C2 {c2}")
+        log(f"[pipeline] {E.shape[0]} packets x {E.shape[1]} field|values, "
+            f"nnz {E.nnz}, {stats['db_entries']} entries; C2 ranks "
+            f"{[hosts.index(c) + 1 for c in c2s]} (file 0's {c2s[0]}); "
+            f"connections, ip.dst degree: {conns}")
+        k_pipe = ops.kernel_launches()
+        check(not any(k_pipe.values()),
+              f"the pipeline launched kernels: {k_pipe}")
+        tables = pipeline_kernels(E, db, hosts, dev, times)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[pipeline] seconds: " +
+        json.dumps({k: round(v, 4) for k, v in times.items()}) +
+        " stage seconds: " + json.dumps(
+            {k: round(v["total_s"], 4) for k, v in stats["stages"].items()}))
+    return dict(stats=stats, times=times, ranks=[hosts.index(c) + 1
+                                                 for c in c2s], **tables)
+
+
+def step_timed(times: dict, name: str, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    times[name] = time.perf_counter() - t0
+    return out
+
+
+def pipeline_kernels(E: Assoc, db, hosts: list, dev, times: dict) -> dict:
+    """Phase 12: segsum, segsum_windowed and spgemm_sel over the
+    pipeline's incidence matrix, each held exactly against the store's
+    own combiner sums, spmm_ell and the plain versions on the CPU."""
+    coo = E.device_coo()
+    rows, cols = coo.rows, coo.cols
+    n_rows, n_cols = coo.shape
+    ones = torch.ones(coo.nnz, device=dev)
+    r, c, v = db.degree_assoc().triples()
+    deg = dict(zip(r.tolist(), np.asarray(v, np.float64).tolist()))
+    want_col = torch.tensor([deg[k] for k in E.col.tolist()],
+                            dtype=torch.float32)
+    tr, _, _ = E.triples()
+    want_row = torch.from_numpy(np.bincount(
+        np.searchsorted(E.row, tr), minlength=n_rows).astype(np.float32))
+    sorted_cols = torch.sort(cols).values
+    row_ptr = np.zeros(n_rows + 1, np.int64)
+    row_ptr[1:] = np.cumsum(torch.bincount(rows.long(),
+                                           minlength=n_rows).cpu().numpy())
+    k_max = int(np.diff(row_ptr).max())
+    cols_h = cols.cpu().numpy()
+    ec_h, ev_h = kspmv.csr_to_ell(row_ptr, cols_h, np.ones(cols_h.shape,
+                                                            np.float32),
+                                  n_rows, k_max)
+    keys = np.asarray([f"ip.dst|{h}" for h in hosts])
+    sel_h = np.searchsorted(E.col, keys)
+    check(bool((E.col[np.minimum(sel_h, n_cols - 1)] == keys).all()),
+          f"a detect_c2 host has no ip.dst column: {hosts}")
+    rng = np.random.default_rng(3)
+    evs_h = rng.uniform(-1.5, 1.5, ec_h.shape).astype(np.float32)
+    neg = ec_h == sel_h[0]                 # the first column: all negative
+    evs_h[neg] = -np.abs(evs_h[neg]) - 0.25
+    evs_h[ec_h < 0] = 0.0
+    ec, ev, evs, sel = (torch.from_numpy(a).to(dev) for a in
+                        (ec_h, ev_h, evs_h, sel_h.astype(np.int32)))
+    onehot = onehot_of(sel, n_cols)
+
+    def calls(t):
+        """The phase's kernel calls on the tensors ``t`` (card or CPU)."""
+        return {
+            "col_segsum": segsum(t["cols"], t["ones"], n_cols),
+            "col_windowed": segsum_windowed(t["sorted_cols"], t["ones"],
+                                            n_cols),
+            "row_windowed": segsum_windowed(t["rows"], t["ones"], n_rows),
+            "sel_plus": kspmm.spgemm_sel(t["ec"], t["ev"], t["sel"]),
+            "spmm_plus": kspmm.spmm_ell(t["ec"], t["ev"], t["onehot"]),
+            "sel_max": kspmm.spgemm_sel(t["ec"], t["evs"], t["sel"],
+                                        ring="max_times"),
+            "spmm_max": kspmm.spmm_ell(t["ec"], t["evs"], t["onehot"],
+                                       ring="max_times"),
+        }
+
+    inputs = dict(cols=cols, ones=ones, sorted_cols=sorted_cols, rows=rows,
+                  ec=ec, ev=ev, evs=evs, sel=sel, onehot=onehot)
+    card = step_timed(times, "kernels", lambda: calls(inputs))
+    launches = ops.kernel_launches()
+    want = dict(PIPE_LAUNCHES)
+    want.update({k: 0 for k in launches if k not in PIPE_LAUNCHES})
+    check(launches == want, f"pipeline phase launches {launches}, want "
+          f"{want}")
+    got = {k: x.cpu() for k, x in card.items()}
+    for name in ("col_segsum", "col_windowed"):
+        check(torch.equal(got[name], want_col),
+              f"{name}: differs from TedgeDeg by "
+              f"{float((got[name] - want_col).abs().max())}")
+    check(torch.equal(got["row_windowed"], want_row),
+          "row_windowed: differs from E's per-packet field counts")
+    degs = torch.tensor([db.degree(k) for k in keys.tolist()],
+                        dtype=torch.float32)
+    check(torch.equal(got["sel_plus"].sum(0), degs),
+          f"spgemm_sel column sums {got['sel_plus'].sum(0).tolist()} != "
+          f"db.degree {degs.tolist()}")
+    check(torch.equal(got["sel_plus"], got["spmm_plus"]),
+          "spgemm_sel differs from spmm_ell against the one-hot X")
+    check(torch.equal(card["sel_max"], spgemm_sel_ref(ec, evs, sel,
+                                                      "max_times")),
+          "spgemm_sel max_times differs from its plain version")
+    hit = torch.from_numpy(neg.any(1))
+    check(bool(hit.any()) and bool((got["sel_max"][hit, 0] < 0).all()) and
+          bool((got["spmm_max"][hit, 0] == 0).all()),
+          "negative-only column: spgemm_sel must keep it, spmm_ell clamp it")
+    host = {k: x.cpu() for k, x in inputs.items()}
+    cpu = calls(host)
+    for name, x in cpu.items():
+        check(torch.equal(x, got[name]), f"{name}: card and CPU differ")
+    log(f"[pipeline] kernel launches {launches}; column degrees of "
+        f"{n_cols} keys and field counts of {n_rows} packets equal "
+        f"TedgeDeg and E; spgemm_sel over ELL {tuple(ec.shape)} x {SEL_B}: "
+        f"column sums {degs.tolist()} equal db.degree and spmm_ell; "
+        f"{int(hit.sum())} packets keep the negative column; CPU agrees")
+
+    main = {
+        "segsum": measure_segsum("segsum", cols, ones, n_cols),
+        "segsum_windowed": measure_segsum("segsum_windowed", sorted_cols,
+                                          ones, n_cols),
+        "spgemm_sel": measure_sel(ec, ev, sel, "plus_times", n_cols,
+                                  library=True),
+    }
+    for name, m in main.items():
+        log(f"[pipeline] {name} at {m['shape']}: kernel {m['ms']:.4f} ms, "
+            f"plain {m['plain_ms']:.4f} ms, library {m['library_ms']} ms, "
+            f"bound {m['bound_ms']:.5f} ms")
+    return dict(launches=launches, main_shapes=main)
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: wkv6 at the serve shape and at a long sequence.
 # ---------------------------------------------------------------------------
 
@@ -439,10 +804,7 @@ def wkv_bound(shape) -> tuple[float, str]:
     (b, t, h) (r^T S and the state update, as multiply-adds)."""
     b, s, h, dh = shape
     n_bytes = 4 * (5 * b * s * h * dh + h * dh + b * h * dh * dh)
-    flops = 4 * dh * dh * b * s * h
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return bound_of(n_bytes, 4 * dh * dh * b * s * h)
 
 
 def measure_wkv6(r, k, v, w, u, plain_iters: int) -> dict:
@@ -744,9 +1106,7 @@ def rglru_bound(shape) -> tuple[float, str]:
     """Least time for one scan on an H100: a and b read once and the
     states written once, fp32; a multiply and an add per element."""
     n = shape[0] * shape[1] * shape[2]
-    t_bytes = 12 * n / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * n / FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return bound_of(12 * n, 2 * n)
 
 
 def measure_rglru(a, b, plain_iters: int) -> dict:
@@ -808,10 +1168,8 @@ def flash_bound(q, k, causal: bool, window: int) -> tuple[float, str]:
     b, sq, h, dh = q.shape
     flops = 4 * dh * b * h * visible_pairs(sq, k.shape[1], causal, window)
     n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
-    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return bound_of(n_bytes, flops, BF16_FLOPS if q.dtype == torch.bfloat16
+                    else FP32_FLOPS)
 
 
 def sdpa_call(q, k, v):
@@ -968,7 +1326,7 @@ def main() -> int:
     log(f"[build] nvcc sm_90a for {sorted(ops.SIGNATURES)} in "
         f"{time.perf_counter() - t0:.1f} s -> {ops.BUILD_DIR}")
 
-    window = kernels_at_window(dev)
+    window, new_window = kernels_at_window(dev)
     wkv = wkv6_at_shapes(dev)
 
     ops.reset_launches()
@@ -995,6 +1353,10 @@ def main() -> int:
     set_device("cuda")
     compare_paths(card, cpu)
     log("[compare] card and CPU main paths agree")
+
+    t0 = time.perf_counter()
+    piped = pipeline_path(dev)
+    log(f"[pipeline] phases 11-12 in {time.perf_counter() - t0:.1f} s")
 
     served = serve_path(dev)
     rglru = rglru_at_shapes(dev)
@@ -1085,6 +1447,43 @@ def main() -> int:
         "serve": dict(rg["times"], device=rg["busy"],
                       peak_gb=rg["peak_gb"]),
     })
+    keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")
+    for name, spec in SEGSUMS.items():
+        head, main_m = new_window[name], piped["main_shapes"][name]
+        rows.append({
+            "name": name, "route": "cuda", "source": SEGSUM_SOURCE,
+            "replaces": spec["replaces"], "launches": piped["launches"][name],
+            "max_abs_err": max(head["max_abs_err"], main_m["max_abs_err"]),
+            "ms": head["ms"], "kernel_ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library": "torch.zeros(S).index_add_(0, ids, vals), ids outside "
+                       "[0, S) masked out beforehand",
+            "shape": head["shape"], "err_vs_f64": head["err_vs_f64"],
+            "tol_used": head["tol_used"],
+            "main_path": {k: main_m[k] for k in keys},
+        })
+    sel_w, main_m = new_window["spgemm_sel"], piped["main_shapes"]["spgemm_sel"]
+    head = sel_w["plus_times"]
+    rows.append({
+        "name": "spgemm_sel", "route": "cuda", "source": SOURCE,
+        "replaces": SEL_REPLACES, "launches": piped["launches"]["spgemm_sel"],
+        "max_abs_err": max([m["max_abs_err"] for m in sel_w.values()]
+                           + [main_m["max_abs_err"]]),
+        "ms": head["ms"], "kernel_ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "library": "torch.sparse.mm(CSR A, dense one-hot (C, 8))",
+        "shape": head["shape"],
+        "max_times": {k: sel_w["max_times"][k] for k in
+                      ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+        "main_path": {k: main_m[k] for k in keys},
+    })
+    log("[pipeline] " + json.dumps({
+        "pipeline": {"stages": piped["stats"]["stages"],
+                     "db_entries": piped["stats"]["db_entries"],
+                     "seconds": piped["times"], "c2_ranks": piped["ranks"]}}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

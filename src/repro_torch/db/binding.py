@@ -48,10 +48,11 @@ from ..core.expr import LazyAssoc, _is_all, _sel_key
 from ..obs.metrics import REGISTRY as _REGISTRY, obj_label as _obj_label
 from ..obs.trace import span as _span
 from .edgestore import EdgeStore, MultiInstanceDB
+from .lsmstore import LSMMultiInstanceDB, LSMStore
 from .registry import make_backend
 from .writer import AsyncWriterError, WriterPool
 
-Backend = Union[EdgeStore, MultiInstanceDB]
+Backend = Union[EdgeStore, MultiInstanceDB, LSMStore, LSMMultiInstanceDB]
 
 _KNOWN_TABLES = ("Tedge", "TedgeT", "TedgeDeg")
 
@@ -926,9 +927,12 @@ def DB(*tables: str, backend: Union[Backend, str, None] = None,
     ``backend`` selects the storage engine: an existing store object, or
     a registered name — ``"memory"`` (the default: a fresh
     :class:`MultiInstanceDB`, or single :class:`EdgeStore` when
-    ``n_instances == 1``).  ``"lsm"`` and ``"net"`` are registered but
-    not ported yet and raise ``NotImplementedError``.  Extra
-    ``backend_options`` (e.g. ``coordination_cost_s``) pass to the engine
+    ``n_instances == 1``), or ``"lsm"`` (the persistent
+    :class:`~repro_torch.db.lsmstore.LSMStore`, which requires ``path=``
+    and shards instances across ``path/db*`` subdirectories when
+    ``n_instances > 1``).  ``"net"`` is registered but not ported yet and
+    raises ``NotImplementedError``.  Extra ``backend_options`` (e.g.
+    ``memtable_limit``, ``coordination_cost_s``) pass to the engine
     factory; see ``repro_torch.db.registry``.  ``cache_ttl`` tunes the scan
     cache (default ``DEFAULT_SCAN_TTL``; ``0`` opts this view out of
     cached reads).

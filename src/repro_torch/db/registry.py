@@ -1,10 +1,11 @@
 """Backend registry — named storage engines behind the ``DB()`` surface.
 
 Every caller goes through one binding, and this registry names the
-engine behind it: ``DB(..., backend="memory")`` binds the query surface
-to the in-process store.  ``"lsm"`` and ``"net"`` are registered so the
-names stay reserved, and raise ``NotImplementedError`` until those
-engines are ported.
+engine behind it: ``DB(..., backend="memory")`` and ``DB(...,
+backend="lsm", path=...)`` bind the same query surface to the in-process
+and the persistent store.  ``"net"`` is registered so the name stays
+reserved, and raises ``NotImplementedError`` until that engine is
+ported.
 Anything implementing the :class:`~repro_torch.db.edgestore.EdgeStore` scan
 protocol (``scan_keys`` / ``scan_key_range`` / ``scan_prefix`` /
 ``scan_everything`` / ``degree`` / ``degree_items`` / ``put_triples`` /
@@ -17,6 +18,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 from .edgestore import EdgeStore, MultiInstanceDB
+from .lsmstore import LSMMultiInstanceDB, LSMStore
 
 BACKENDS: Dict[str, Callable] = {}
 
@@ -47,7 +49,8 @@ def _memory(*, n_instances: int, tablets_per_instance: int,
             path: Optional[str] = None, **options):
     """The in-process engine: volatile, fast, no ``path``."""
     if path is not None:
-        raise ValueError("backend='memory' takes no path= (it is volatile)")
+        raise ValueError("backend='memory' takes no path= (it is volatile); "
+                         "use backend='lsm' for a durable store")
     if n_instances == 1:
         return EdgeStore(n_tablets=tablets_per_instance, **options)
     return MultiInstanceDB(n_instances=n_instances,
@@ -55,15 +58,29 @@ def _memory(*, n_instances: int, tablets_per_instance: int,
                            **options)
 
 
+def _lsm(*, n_instances: int, tablets_per_instance: int,
+         path: Optional[str] = None, **options):
+    """The persistent LSM engine: WAL + memtable + sorted runs under
+    ``path`` (one subdirectory per instance when ``n_instances > 1``).
+    ``tablets_per_instance`` is accepted for signature parity and
+    ignored — an LSM instance's parallelism is its run set."""
+    del tablets_per_instance
+    if path is None:
+        raise ValueError("backend='lsm' requires path= (the store's "
+                         "directory)")
+    if n_instances == 1:
+        return LSMStore(path, **options)
+    return LSMMultiInstanceDB(path, n_instances=n_instances, **options)
+
+
 def _not_ported(name: str) -> Callable:
     def factory(**options):
         raise NotImplementedError(
             f"backend={name!r} is not ported to repro_torch yet; it is "
-            f"queued as the next db slice (the lsm, then the net backend). "
-            f"Use backend='memory'.")
+            f"queued as a later db slice. Use backend='memory' or 'lsm'.")
     return factory
 
 
 register_backend("memory", _memory)
-register_backend("lsm", _not_ported("lsm"))
+register_backend("lsm", _lsm)
 register_backend("net", _not_ported("net"))

@@ -40,6 +40,13 @@ SIGNATURES = {
                      _VOIDP),
         "ell_spmm": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _I64, _INT, _I64, _INT,
                      _INT, _VOIDP),
+        "ell_spgemm_sel": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _I64, _INT, _INT,
+                           _INT, _VOIDP),
+    },
+    "segsum": {
+        "segsum_forward": (_VOIDP, _VOIDP, _VOIDP, _I64, _I64, _INT, _VOIDP),
+        "segsum_windowed_forward": (_VOIDP, _VOIDP, _VOIDP, _I64, _I64, _INT,
+                                    _VOIDP),
     },
     "wkv6": {
         "wkv6_forward": (_VOIDP,) * 7 + (_I64, _I64, _INT, _INT, _I64, _I64,
@@ -56,7 +63,8 @@ SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
-_LAUNCHES = {"spmv_ell": 0, "spmm_ell": 0, "wkv6": 0, "rglru_scan": 0,
+_LAUNCHES = {"spmv_ell": 0, "spmm_ell": 0, "spgemm_sel": 0, "segsum": 0,
+             "segsum_windowed": 0, "wkv6": 0, "rglru_scan": 0,
              "flash_attention": 0}
 
 

@@ -49,6 +49,36 @@ def spmm_ell_ref(ecols: torch.Tensor, evals: torch.Tensor, x: torch.Tensor,
     return _reduce(*_gather_products(ecols, evals, x), ring)
 
 
+def segsum_ref(ids: torch.Tensor, vals: torch.Tensor,
+               num_segments: int) -> torch.Tensor:
+    """out[s] = Σ_{i: ids[i]==s} vals[i], summed in float32; ids outside
+    [0, num_segments) (the ELL's -1 padding among them) are dropped, as
+    ``jax.ops.segment_sum`` and the Pallas kernel drop them."""
+    out = torch.zeros(num_segments, dtype=torch.float32, device=vals.device)
+    keep = (ids >= 0) & (ids < num_segments)
+    return out.index_add_(0, ids[keep].long(), vals[keep].to(torch.float32))
+
+
+def spgemm_sel_ref(ecols: torch.Tensor, evals: torch.Tensor,
+                   sel: torch.Tensor, ring: str = "plus_times") -> torch.Tensor:
+    """Y[r, j] = ⊕_k evals[r,k] ⊗ [ecols[r,k] == sel[j]] over stored
+    slots only (``ecols >= 0``): the masked column select, with the
+    (R, K, B) hit mask built densely.  Under ``max_times`` only hits
+    reduce, from -inf, so a column whose hits are all negative keeps its
+    negative maximum; (row, j) with no hit resolves to 0."""
+    if ring not in RINGS:
+        raise ValueError(f"ring must be one of {RINGS}, got {ring!r}")
+    if ecols.shape[1] == 0:
+        return torch.zeros((ecols.shape[0], sel.shape[0]),
+                           dtype=torch.float32, device=evals.device)
+    hit = (ecols[..., None] == sel[None, None, :]) & (ecols[..., None] >= 0)
+    vals = evals.to(torch.float32)[..., None]
+    if ring == "plus_times":
+        return torch.where(hit, vals, 0.0).sum(dim=1)
+    out = torch.where(hit, vals, -torch.inf).amax(dim=1)
+    return torch.where(torch.isneginf(out), 0.0, out)
+
+
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              w: torch.Tensor, u: torch.Tensor):
     """The RWKV-6 recurrence from a zero state: the model's own

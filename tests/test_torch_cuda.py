@@ -15,9 +15,15 @@ for flash_attention in float32 rtol=atol=2e-5 (the JAX package's own
 tolerance between its flash kernel and the naive form) and in bfloat16
 rtol=atol=1e-2 against the plain version on the same values in float32
 (the kernel computes in float32 and rounds only its output to bf16, half
-an ulp: at most 0.0078 below 4).
+an ulp: at most 0.0078 below 4); for segsum and segsum_windowed
+rtol=1e-5, atol=1e-4·max(1, max|plain|) (float atomics add in an order
+that changes from run to run) and exact equality for integer counts
+(below 2^24, every order gives the same float); for spgemm_sel exact
+equality where each (row, j) has at most one stored hit, else rtol=atol=
+1e-6 (another summation order).
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -29,9 +35,14 @@ from repro_torch.core import expr as X
 from repro_torch.db import DB, put
 from repro_torch.device import set_device
 from repro_torch.kernels import flash_attention, flash_attention_ref, ops, \
-    rglru_scan, rglru_scan_ref, spmm_ell, spmm_ell_ref, spmv_ell, \
+    rglru_scan, rglru_scan_ref, segsum, segsum_ref, segsum_windowed, \
+    spgemm_sel, spgemm_sel_ref, spmm_ell, spmm_ell_ref, spmv_ell, \
     spmv_ell_ref, wkv6, wkv6_ref
+from repro_torch.kernels import spmm as kspmm
 from repro_torch.models import init_params, prefill
+
+# the module (the package namespace's ``segsum`` is the function)
+ksegsum = importlib.import_module("repro_torch.kernels.segsum")
 
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-6
@@ -349,3 +360,216 @@ def test_recurrentgemma_prefill_on_card_matches_cpu(card):
                 torch.testing.assert_close(g.cpu(), x, **WKV_TOL)
             else:
                 assert g == x
+
+
+# ---------------------------------------------------------------------------
+# segsum, segsum_windowed, spgemm_sel
+# ---------------------------------------------------------------------------
+
+SEG_RTOL, SEG_ATOL = 1e-5, 1e-4          # atol x max(1, max|plain|)
+SEL_TOL = dict(rtol=1e-6, atol=1e-6)
+SEGSUMS = {"segsum": segsum, "segsum_windowed": segsum_windowed}
+
+
+def seg_close(got, want):
+    atol = SEG_ATOL * max(1.0, float(want.abs().max()) if want.numel() else 0)
+    torch.testing.assert_close(got, want, rtol=SEG_RTOL, atol=atol)
+
+
+def seg_case(nnz, nseg, seed, dev, sort=False, pad=0.0,
+             dtype=torch.float32):
+    """Random ids in [0, nseg) (a ``pad`` share set to -1), normal vals."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, max(nseg, 1), nnz).astype(np.int32)
+    ids[rng.random(nnz) < pad] = -1
+    if sort:
+        ids.sort()
+    vals = rng.normal(0, 1, nnz).astype(np.float32)
+    return (torch.from_numpy(ids).to(dev),
+            torch.from_numpy(vals).to(dev).to(dtype))
+
+
+@pytest.mark.parametrize("name", sorted(SEGSUMS))
+@pytest.mark.parametrize("nnz,nseg", [(100, 17), (1000, 300), (5000, 64),
+                                      (7, 3), (777, 100), (20000, 5000),
+                                      (100003, 1000), (513, 1)])
+def test_segsums_match_plain(card, name, nnz, nseg):
+    ids, vals = seg_case(nnz, nseg, seed=nnz + nseg, dev=card,
+                         sort=name == "segsum_windowed")
+    before = ops.kernel_launches()[name]
+    got = SEGSUMS[name](ids, vals, nseg)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()[name] == before + 1
+    seg_close(got, segsum_ref(ids, vals, nseg))
+
+
+@pytest.mark.parametrize("name", sorted(SEGSUMS))
+def test_segsums_integer_counts_exact(card, name):
+    """Unit values sum to exact counts whatever the order: ragged runs,
+    runs across every range boundary, and one run over all of nnz."""
+    rng = np.random.default_rng(5)
+    for ids_np in (np.sort(rng.integers(0, 3000, 200_001)),
+                   np.repeat(np.arange(50), rng.integers(1, 9000, 50)),
+                   np.full(100_000, 7)):
+        ids = torch.from_numpy(ids_np.astype(np.int32)).to(card)
+        if name == "segsum":
+            ids = ids[torch.randperm(ids.numel(), device=card)]
+        ones = torch.ones(ids.numel(), device=card)
+        got = SEGSUMS[name](ids, ones, 3000)
+        assert torch.equal(got, segsum_ref(ids, ones, 3000))
+
+
+@pytest.mark.parametrize("name", sorted(SEGSUMS))
+def test_segsums_sparse_million_segments(card, name):
+    ids, vals = seg_case(2048, 1_000_000, seed=9, dev=card, sort=True)
+    if name == "segsum":
+        ids = ids.flip(0)
+    seg_close(SEGSUMS[name](ids, vals, 1_000_000),
+              segsum_ref(ids, vals, 1_000_000))
+
+
+@pytest.mark.parametrize("name", sorted(SEGSUMS))
+def test_segsums_bf16_values(card, name):
+    ids, vals = seg_case(4099, 31, seed=4, dev=card,
+                         sort=name == "segsum_windowed",
+                         dtype=torch.bfloat16)
+    seg_close(SEGSUMS[name](ids, vals, 31), segsum_ref(ids, vals, 31))
+
+
+def test_segsum_drops_padding_and_out_of_range(card):
+    ids, vals = seg_case(30_000, 500, seed=6, dev=card, pad=0.3)
+    ids[::97] = 500                              # one past the last segment
+    ids[::101] = 10**6
+    seg_close(segsum(ids, vals, 500), segsum_ref(ids, vals, 500))
+    seg_close(segsum(ids.long(), vals, 500), segsum_ref(ids, vals, 500))
+
+
+@pytest.mark.parametrize("name", sorted(SEGSUMS))
+def test_segsums_empty(card, name):
+    before = ops.kernel_launches()[name]
+    empty_i = torch.zeros(0, dtype=torch.int32, device=card)
+    empty_v = torch.zeros(0, device=card)
+    got = SEGSUMS[name](empty_i, empty_v, 9)
+    assert got.shape == (9,) and not got.any()
+    ids, vals = seg_case(50, 5, seed=1, dev=card, sort=True)
+    assert SEGSUMS[name](ids, vals, 0).shape == (0,)
+    assert ops.kernel_launches()[name] == before
+
+
+@pytest.mark.parametrize("name", sorted(SEGSUMS))
+def test_segsums_never_run_plain_on_card(card, name, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+    monkeypatch.setattr(ksegsum, "segsum_ref", boom)
+    ids, vals = seg_case(1000, 40, seed=2, dev=card, sort=True)
+    SEGSUMS[name](ids, vals, 40)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", sorted(SEGSUMS))
+def test_segsums_reject_bad_inputs(card, name):
+    fn = SEGSUMS[name]
+    ids, vals = seg_case(64, 8, seed=3, dev=card, sort=True)
+    before = ops.kernel_launches()[name]
+    with pytest.raises(TypeError):
+        fn(ids.float(), vals, 8)
+    with pytest.raises(TypeError):
+        fn(ids, vals.double(), 8)
+    with pytest.raises(ValueError):
+        fn(ids[:-1], vals, 8)
+    with pytest.raises(ValueError):
+        fn(ids.view(8, 8), vals.view(8, 8), 8)
+    with pytest.raises(ValueError):
+        fn(ids, vals.cpu(), 8)
+    assert ops.kernel_launches()[name] == before
+
+
+def sel_case(R, C, K, B, seed, dev, distinct=False):
+    """A random ELL pack with -1 padding and blank rows; ``distinct``
+    keeps each row's columns distinct (at most one hit per (row, j))."""
+    rng = np.random.default_rng(seed)
+    if distinct:
+        ecols = np.argsort(rng.random((R, C)), axis=1)[:, :K].astype(np.int32)
+    else:
+        ecols = rng.integers(0, C, (R, K)).astype(np.int32)
+    ecols[rng.random((R, K)) < 0.2] = -1
+    ecols[rng.random(R) < 0.05] = -1
+    evals = rng.normal(0, 1, (R, K)).astype(np.float32)
+    evals[ecols < 0] = 0.0
+    sel = rng.choice(C, B, replace=B > C).astype(np.int32)
+    return [torch.from_numpy(a).to(dev) for a in (ecols, evals, sel)]
+
+
+@pytest.mark.parametrize("B", [1, 8, 40, 300])
+@pytest.mark.parametrize("ring", RINGS)
+def test_spgemm_sel_matches_plain(card, B, ring):
+    ec, ev, sel = sel_case(5003, 3000, 9, B, seed=B, dev=card)
+    sel[0] = -1                                 # never a stored column
+    before = ops.kernel_launches()["spgemm_sel"]
+    got = spgemm_sel(ec, ev, sel, ring=ring)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["spgemm_sel"] == before + 1
+    torch.testing.assert_close(got, spgemm_sel_ref(ec, ev, sel, ring),
+                               **SEL_TOL)
+
+
+@pytest.mark.parametrize("ring", RINGS)
+def test_spgemm_sel_one_hit_exact(card, ring):
+    """At most one stored hit per (row, j): equal to the plain version,
+    and under plus_times to spmm_ell against the one-hot X."""
+    ec, ev, sel = sel_case(2000, 64, 9, 8, seed=12, dev=card, distinct=True)
+    sel = torch.arange(0, 64, 8, dtype=torch.int32, device=card)
+    got = spgemm_sel(ec, ev, sel, ring=ring)
+    assert torch.equal(got, spgemm_sel_ref(ec, ev, sel, ring))
+    onehot = torch.zeros((64, 8), device=card)
+    onehot[sel.long(), torch.arange(8, device=card)] = 1.0
+    if ring == "plus_times":
+        assert torch.equal(got, spmm_ell(ec, ev, onehot))
+
+
+def test_spgemm_sel_negative_hits_survive(card):
+    ec = torch.tensor([[0, 1, -1]], dtype=torch.int32, device=card)
+    ev = torch.tensor([[-2.0, -3.0, 0.0]], device=card)
+    sel = torch.tensor([0, 1, 5], dtype=torch.int32, device=card)
+    got = spgemm_sel(ec, ev, sel, ring="max_times")
+    assert got.cpu().tolist() == [[-2.0, -3.0, 0.0]]
+    onehot = torch.zeros((6, 3), device=card)
+    onehot[sel.long(), torch.arange(3, device=card)] = 1.0
+    assert spmm_ell(ec, ev, onehot, ring="max_times").cpu().tolist() == \
+        [[0.0, 0.0, 0.0]]
+
+
+def test_spgemm_sel_empty_shapes(card):
+    ec, ev, sel = sel_case(10, 20, 3, 4, seed=1, dev=card)
+    before = ops.kernel_launches()["spgemm_sel"]
+    assert spgemm_sel(ec[:0], ev[:0], sel).shape == (0, 4)
+    assert spgemm_sel(ec, ev, sel[:0]).shape == (10, 0)
+    assert ops.kernel_launches()["spgemm_sel"] == before
+    k0 = spgemm_sel(ec[:, :0].contiguous(), ev[:, :0].contiguous(), sel,
+                    ring="max_times")
+    assert k0.shape == (10, 4) and not k0.any()
+
+
+def test_spgemm_sel_never_runs_plain_on_card(card, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+    monkeypatch.setattr(kspmm, "spgemm_sel_ref", boom)
+    ec, ev, sel = sel_case(300, 50, 4, 8, seed=2, dev=card)
+    spgemm_sel(ec, ev, sel)
+    torch.cuda.synchronize()
+
+
+def test_spgemm_sel_rejects_bad_inputs(card):
+    ec, ev, sel = sel_case(30, 50, 4, 8, seed=3, dev=card)
+    before = ops.kernel_launches()["spgemm_sel"]
+    with pytest.raises(TypeError):
+        spgemm_sel(ec.long(), ev, sel)
+    with pytest.raises(ValueError):
+        spgemm_sel(ec, ev, sel.float())
+    with pytest.raises(ValueError):
+        spgemm_sel(ec, ev, sel[None])
+    with pytest.raises(ValueError):
+        spgemm_sel(ec, ev, sel, ring="min_plus")
+    with pytest.raises(ValueError):
+        spgemm_sel(ec, ev, sel.cpu())
+    assert ops.kernel_launches()["spgemm_sel"] == before

@@ -83,6 +83,31 @@ def test_serving_modules_import_with_jax_and_reference_blocked(module):
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.pipeline.runner", "repro_torch.pipeline.stages",
+    "repro_torch.pipeline.driver", "repro_torch.kernels.segsum",
+    "repro_torch.db.lsmstore"])
+def test_pipeline_modules_import_with_jax_and_reference_blocked(module):
+    """The pipeline slice's modules import on their own with jax and the
+    JAX package made unimportable, and pull in neither."""
+    script = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        import importlib
+        importlib.import_module({module!r})
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        from repro_torch.kernels import ops
+        assert not ops._LIBS
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_DEVICE="cpu")
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_chip_smoke_refuses_without_card():
     """No result and a non-zero exit where no CUDA device is visible."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")

@@ -107,7 +107,8 @@ class TestSpmvEll:
         spmv_ell(t(ecols), t(evals), t(xvec(16, seed=2)))
         spmm_ell(t(ecols), t(evals), t(xvec(16, seed=2, b=3)))
         assert ops.kernel_launches() == {
-            "spmv_ell": 0, "spmm_ell": 0, "wkv6": 0, "rglru_scan": 0,
+            "spmv_ell": 0, "spmm_ell": 0, "spgemm_sel": 0, "segsum": 0,
+            "segsum_windowed": 0, "wkv6": 0, "rglru_scan": 0,
             "flash_attention": 0}
 
 

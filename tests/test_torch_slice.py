@@ -161,9 +161,12 @@ class TestSlice:
         close(ppr, jppr)
 
     def test_backends_not_ported_raise(self):
-        for name in ("lsm", "net"):
-            with pytest.raises(NotImplementedError, match=name):
-                DB("Tedge", backend=name)
+        """``"net"`` is still unported; ``"lsm"`` is ported and, like
+        the reference, refuses to open without a directory."""
+        with pytest.raises(NotImplementedError, match="net"):
+            DB("Tedge", backend="net")
+        with pytest.raises(ValueError, match="requires path"):
+            DB("Tedge", backend="lsm")
 
 
 def adjacency_case(seed=0, n=30, nnz=150):
