@@ -44,6 +44,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 template <int RING>
@@ -184,4 +186,22 @@ extern "C" int ell_spgemm_sel(const int32_t* ecols, const float* evals,
     spgemm_sel_kernel<1><<<blocks_for(n_rows), kThreads, 0, s>>>(
         ecols, evals, sel, Y, n_rows, k, b);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+const KernelEntry kKernels[] = {
+    {"spmv_ell plus_times", (const void*)spmv_ell_kernel<0>},
+    {"spmv_ell max_times", (const void*)spmv_ell_kernel<1>},
+    {"spmm_ell plus_times", (const void*)spmm_ell_kernel<0>},
+    {"spmm_ell max_times", (const void*)spmm_ell_kernel<1>},
+    {"spgemm_sel plus_times", (const void*)spgemm_sel_kernel<0>},
+    {"spgemm_sel max_times", (const void*)spgemm_sel_kernel<1>},
+};
+
+}  // namespace
+
+extern "C" int ell_attrs(int i, int* out, const char** name) {
+  return kernel_attrs(kKernels, (int)(sizeof(kKernels) / sizeof(kKernels[0])),
+                      i, out, name);
 }

@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr int THREADS = 64;
@@ -86,4 +88,17 @@ extern "C" int rglru_forward(const float* a, const float* b, float* out,
   rglru_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(a, b, out, T, C,
                                                            sb, st);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+const KernelEntry kKernels[] = {
+    {"rglru_scan", (const void*)rglru_kernel},
+};
+
+}  // namespace
+
+extern "C" int rglru_attrs(int i, int* out, const char** name) {
+  return kernel_attrs(kKernels, (int)(sizeof(kKernels) / sizeof(kKernels[0])),
+                      i, out, name);
 }

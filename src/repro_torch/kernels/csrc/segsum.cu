@@ -49,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -219,4 +221,21 @@ extern "C" int segsum_windowed_forward(const int32_t* ids, const void* vals,
              ? launch_segsum<__nv_bfloat16>(ids, vals, out, nnz, n_seg, true,
                                             s)
              : launch_segsum<float>(ids, vals, out, nnz, n_seg, true, s);
+}
+
+namespace {
+
+const KernelEntry kKernels[] = {
+    {"segsum f32", (const void*)segsum_kernel<float>},
+    {"segsum bf16", (const void*)segsum_kernel<__nv_bfloat16>},
+    {"segsum_windowed f32", (const void*)segsum_windowed_kernel<float>},
+    {"segsum_windowed bf16",
+     (const void*)segsum_windowed_kernel<__nv_bfloat16>},
+};
+
+}  // namespace
+
+extern "C" int segsum_attrs(int i, int* out, const char** name) {
+  return kernel_attrs(kKernels, (int)(sizeof(kKernels) / sizeof(kKernels[0])),
+                      i, out, name);
 }

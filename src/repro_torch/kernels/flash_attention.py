@@ -4,9 +4,10 @@ masks and grouped kv heads.
 :func:`flash_attention` keeps the JAX package's public layout: q
 (B, Sq, H, Dh), k and v (B, Sk, KV, Dh) with H % KV == 0, positions
 0..S-1 derived from indices.  On CUDA tensors it launches the kernel in
-``csrc/flash_attention.cu``; on CPU tensors it runs the plain version
-:func:`repro_torch.kernels.ref.flash_attention_ref` (the model's
-``attention_naive``).
+``csrc/flash_attention.cu`` for q's dtype: bfloat16 runs on the tensor
+cores (``mma.sync``), float32 on the CUDA cores; on CPU tensors it runs
+the plain version :func:`repro_torch.kernels.ref.flash_attention_ref`
+(the model's ``attention_naive``).
 """
 from __future__ import annotations
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -33,6 +34,8 @@ _VOIDP = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _F32 = ctypes.c_float
+# <lib>_attrs(i, int out[4], const char** name) of every library
+_ATTRS = (_INT, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_char_p))
 # C signatures of every exported function, by library.
 SIGNATURES = {
     "ell": {
@@ -42,22 +45,27 @@ SIGNATURES = {
                      _INT, _VOIDP),
         "ell_spgemm_sel": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _I64, _INT, _INT,
                            _INT, _VOIDP),
+        "ell_attrs": _ATTRS,
     },
     "segsum": {
         "segsum_forward": (_VOIDP, _VOIDP, _VOIDP, _I64, _I64, _INT, _VOIDP),
         "segsum_windowed_forward": (_VOIDP, _VOIDP, _VOIDP, _I64, _I64, _INT,
                                     _VOIDP),
+        "segsum_attrs": _ATTRS,
     },
     "wkv6": {
         "wkv6_forward": (_VOIDP,) * 7 + (_I64, _I64, _INT, _INT, _I64, _I64,
                                           _I64, _VOIDP),
+        "wkv6_attrs": _ATTRS,
     },
     "rglru": {
         "rglru_forward": (_VOIDP,) * 3 + (_I64,) * 5 + (_VOIDP,),
+        "rglru_attrs": _ATTRS,
     },
     "flash_attention": {
         "flash_attention_forward": (_VOIDP,) * 4 + (_I64,) * 3 + (_INT,) * 3
         + (_I64,) * 9 + (_INT, _INT, _F32, _INT, _VOIDP),
+        "flash_attention_attrs": _ATTRS,
     },
 }
 
@@ -91,7 +99,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -166,6 +175,28 @@ def launch(lib: str, fn: str, kernel: str, device: torch.device,
         raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
     with _LOCK:
         _LAUNCHES[kernel] += 1
+
+
+def kernel_attributes() -> list:
+    """Every kernel instance of every library, as cudaFuncGetAttributes
+    reports it: registers a thread, static shared bytes, the largest
+    dynamic shared bytes a launch has allowed so far, and local (spill)
+    bytes a thread."""
+    rows = []
+    for lib in SIGNATURES:
+        fn = getattr(load(lib), f"{lib}_attrs")
+        for i in itertools.count():
+            out = (ctypes.c_int * 4)()
+            name = ctypes.c_char_p()
+            err = fn(i, out, ctypes.byref(name))
+            if err == -1:
+                break
+            if err:
+                raise RuntimeError(f"{lib}_attrs({i}): CUDA error {err}")
+            rows.append({"lib": lib, "kernel": name.value.decode(),
+                         "registers": out[0], "static_smem": out[1],
+                         "dynamic_smem": out[2], "local_bytes": out[3]})
+    return rows
 
 
 def kernel_launches() -> dict:

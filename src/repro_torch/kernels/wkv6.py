@@ -5,9 +5,9 @@
     o_t = r_t · (S + u ⊙ k_t ⊗ v_t),    S ← w_t ⊙ S + k_t ⊗ v_t
 
 and returns the output with the final state, which the model hands to
-decode.  On CUDA tensors it launches the kernel in ``csrc/wkv6.cu``
-(sequential recurrence, state in registers); on CPU tensors it runs the
-plain version :func:`repro_torch.kernels.ref.wkv6_ref`.
+decode.  On CUDA tensors it launches the kernel in ``csrc/wkv6.cu`` (the
+chunked form, chunks of 16 steps); on CPU tensors it runs the plain
+version :func:`repro_torch.kernels.ref.wkv6_ref`.
 """
 from __future__ import annotations
 
@@ -45,7 +45,14 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """r, k, v, w: (B, S, H, Dh) float32, w the per-step decay in (0, 1);
     u: (H, Dh) bonus.  Returns (o (B, S, H, Dh), final state
-    (B, H, Dh, Dh) k-major), both float32."""
+    (B, H, Dh, Dh) k-major), both float32.  Any S, a ragged last chunk
+    included.
+
+    The kernel's chunked form scales by exp(±Σ log w) over a chunk of 16
+    steps, with no guard: it holds float32 for w ≥ 0.004 (the model clips
+    w at exp(-e^0.5) ≈ 0.1924, where the factors stay within 3e11).  That
+    domain is wider than the Pallas kernel's, whose default chunk of 32
+    overflows sooner (8.2e22 at the clip floor)."""
     check_wkv6(r, k, v, w, u)
     if not ops.on_cuda(r, k, v, w, u):
         return wkv6_ref(r, k, v, w, u)

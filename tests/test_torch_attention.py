@@ -15,7 +15,12 @@ Tolerances:
   the two frameworks round bf16 intermediates (the softmax weights, the
   einsum outputs) at different places;
 * rtol=atol=1e-4 for the attention block (projections, RoPE, ring
-  caches), float32 through a few more matmuls.
+  caches), float32 through a few more matmuls;
+* for the CUDA bf16 kernel's rounding, emulated here, chip_smoke's own
+  tolerances: rtol=atol=2e-2 against the plain version on the same bf16
+  inputs, rtol=atol=1e-2 against float32 arithmetic, and a relative
+  Frobenius error within 5e-3 against float32 arithmetic in each quarter
+  of the query positions.
 """
 import dataclasses
 
@@ -43,6 +48,14 @@ SHAPES = [(128, 4, 4, 32, 32, 32),      # MHA
           (128, 4, 2, 32, 64, 32),      # GQA
           (256, 8, 1, 64, 64, 64)]      # MQA
 MASKS = [(True, 0), (True, 48), (False, 0), (False, 48)]
+# chip_smoke's bf16 flash cases, cut to batch 1 and two heads:
+# (S, H, KV, Dh, causal, window), and its tolerances (rtol = atol)
+CHIP_BF16_CASES = [(512, 2, 1, 256, True, 2048), (4096, 2, 1, 256, True, 2048)]
+FLASH_TOL_BF16 = 2e-2         # against the plain version, bf16 inputs
+FLASH_F32_TOL = 1e-2          # against float32 arithmetic
+FLASH_BANDS, FLASH_BAND_TOL = 4, 5e-3   # relative Frobenius, by row band
+BLOCK_K = 64                  # keys a tile of the bf16 kernel
+NEG_INF = -1e30
 
 
 @pytest.fixture(autouse=True)
@@ -141,6 +154,77 @@ def test_flash_rejects_what_the_kernel_does_not_take(case):
         q = q.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises((TypeError, ValueError)):
         flash_attention(q, k, v)
+
+
+def bf16_kernel_form(q, k, v, causal, window):
+    """flash_attention as the CUDA kernel computes bf16 inputs: q.k in
+    float32 from bf16 operands, scores in log2 units, key tiles of
+    :data:`BLOCK_K` folded one at a time into float32 m, l and acc, the
+    softmax weights rounded to bf16 before P.V (l sums them unrounded),
+    masked scores NEG_INF and keys past Sk -inf, o = acc / max(l, 1e-30)
+    rounded to bf16.  q: (B, Sq, H, Dh), k, v: (B, Sk, KV, Dh)."""
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qf = q.float().transpose(1, 2)                                # B,H,Sq,D
+    kf, vf = (x.float().repeat_interleave(h // kv, dim=2).transpose(1, 2)
+              for x in (k, v))
+    scale = dh ** -0.5 * 1.4426950408889634
+    rows = torch.arange(sq)[:, None]
+    m = torch.full((b, h, sq, 1), NEG_INF)
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, dh))
+    for t0 in range(0, sk, BLOCK_K):
+        keys = torch.arange(t0, t0 + BLOCK_K)[None, :]
+        kt = kf[:, :, t0:t0 + BLOCK_K]
+        s = torch.full((b, h, sq, BLOCK_K), -torch.inf)
+        s[..., :kt.shape[2]] = qf @ kt.transpose(-1, -2) * scale
+        d = rows - keys
+        masked = (d < 0) if causal else torch.zeros_like(d, dtype=torch.bool)
+        if window:
+            masked |= d >= window
+        s = torch.where(masked & (keys < sk), NEG_INF, s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p16 = p[..., :kt.shape[2]].to(torch.bfloat16).float()
+        acc = acc * alpha + p16 @ vf[:, :, t0:t0 + BLOCK_K]
+        m = m_new
+    o = acc / torch.clamp_min(l, 1e-30)
+    return o.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("S,H,KV,Dh,causal,window", CHIP_BF16_CASES)
+def test_bf16_kernel_rounding_holds_chip_tolerances(S, H, KV, Dh, causal,
+                                                    window):
+    """The bf16 kernel's rounding points stay inside chip_smoke's
+    tolerances at its bf16 cases (batch 1, two heads)."""
+    q, k, v = (t(a).to(torch.bfloat16)
+               for a in qkv(1, S, S, H, KV, Dh, seed=S + Dh))
+    got = bf16_kernel_form(q, k, v, causal, window).float()
+    plain = flash_attention_ref(q, k, v, causal, window).float()
+    close(got, plain, dict(rtol=FLASH_TOL_BF16, atol=FLASH_TOL_BF16))
+    f32 = flash_attention_ref(q.float(), k.float(), v.float(), causal,
+                              window)
+    close(got, f32, dict(rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL))
+    for i in range(FLASH_BANDS):
+        band = slice(i * S // FLASH_BANDS, (i + 1) * S // FLASH_BANDS)
+        rel = (got[:, band] - f32[:, band]).norm() / f32[:, band].norm()
+        assert rel <= FLASH_BAND_TOL, (i, float(rel))
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 24),
+                                           (True, 8)])
+def test_bf16_kernel_form_rows_that_see_nothing(causal, window):
+    """Sq > Sk under a window and a ragged last key tile: the emulated
+    kernel averages every value for rows that see no key, as the plain
+    version does, and agrees with it elsewhere."""
+    q, k, v = (t(a).to(torch.bfloat16)
+               for a in qkv(1, 90, 40, 2, 1, 24, seed=window))
+    got = bf16_kernel_form(q, k, v, causal, window).float()
+    f32 = flash_attention_ref(q.float(), k.float(), v.float(), causal,
+                              window)
+    close(got, f32, dict(rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL))
 
 
 def test_flash_mixed_devices_raise():

@@ -47,6 +47,8 @@ ksegsum = importlib.import_module("repro_torch.kernels.segsum")
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-6
 WKV_TOL = dict(rtol=1e-4, atol=1e-4)
+WKV_HEAD_DIMS = (8, 16, 32, 64, 128)
+CLIP_FLOOR = float(np.exp(-np.exp(0.5)))   # the model's smallest decay
 ATTN_F32_TOL = dict(rtol=2e-5, atol=2e-5)
 ATTN_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 HEAD_DIMS = (16, 64, 80, 96, 128, 256)
@@ -163,6 +165,37 @@ def test_wkv6_matches_plain(card, Dh):
     assert ops.kernel_launches()["wkv6"] == before + 2
 
 
+@pytest.mark.parametrize("decay", ["normal", "clip_floor"])
+@pytest.mark.parametrize("Dh", WKV_HEAD_DIMS)
+def test_wkv6_chunks(card, Dh, decay):
+    """Every head dim; S = 97, ragged against the kernel's 16-step chunks;
+    the decays as the tests draw them, or all at the model's clip floor,
+    where the chunked form's exp(±Σ log w) is largest."""
+    r, k, v, w, u = wkv_case(2, 97, 3, Dh, seed=Dh + 1, dev=card)
+    if decay == "clip_floor":
+        w = torch.full_like(w, CLIP_FLOOR)
+    before = ops.kernel_launches()["wkv6"]
+    out, state = wkv6(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["wkv6"] == before + 1
+    want_out, want_state = wkv6_ref(r, k, v, w, u)
+    torch.testing.assert_close(out, want_out, **WKV_TOL)
+    torch.testing.assert_close(state, want_state, **WKV_TOL)
+
+
+def test_wkv6_unaligned_views(card):
+    """Views whose base is not 16-byte aligned take the kernel's 4-byte
+    copies and give the contiguous inputs' result exactly."""
+    r, k, v, w, u = wkv_case(2, 40, 2, 32, seed=3, dev=card)
+    views = [torch.cat([torch.zeros_like(a[..., :1]), a], dim=-1)[..., 1:]
+             for a in (r, k, v, w)]
+    assert views[0].data_ptr() % 16
+    got = wkv6(*views, u)
+    want = wkv6(r, k, v, w, u)
+    for g, x in zip(got, want):
+        torch.testing.assert_close(g, x, rtol=0, atol=0)
+
+
 def test_wkv6_strided_views(card):
     """The kernel reads views of wider tensors through their strides."""
     r, k, v, w, u = wkv_case(2, 40, 2, 32, seed=1, dev=card)
@@ -277,19 +310,42 @@ def test_flash_attention_head_dims(card, Dh, dtype):
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 40),
                                            (False, 0), (False, 40)])
 @pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (8, 1)])
-def test_flash_attention_masks(card, causal, window, H, KV):
-    q, k, v = attn_case(2, 200, 200, H, KV, 64, torch.float32, seed=H + KV,
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_masks(card, causal, window, H, KV, dtype):
+    q, k, v = attn_case(2, 200, 200, H, KV, 64, dtype, seed=H + KV,
                         dev=card)
     check_attention(q, k, v, causal, window)
 
 
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_rows_that_see_nothing(card, causal):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_rows_that_see_nothing(card, causal, dtype):
     """Sq > Sk with a window: rows i >= Sk + window - 1 see no key and
     average every value, as the Pallas kernel and the plain version do."""
-    q, k, v = attn_case(1, 130, 40, 2, 1, 64, torch.float32, seed=7,
-                        dev=card)
+    q, k, v = attn_case(1, 130, 40, 2, 1, 64, dtype, seed=7, dev=card)
     check_attention(q, k, v, causal, window=16)
+
+
+@pytest.mark.parametrize("Dh", [8, 24])
+def test_flash_attention_bf16_padded_head_dims(card, Dh):
+    """Head dims that are multiples of 8 but not of 16: the tensor-core
+    kernel pads the mma's k-dimension with zeros in shared memory."""
+    q, k, v = attn_case(2, 100, 100, 4, 2, Dh, torch.bfloat16, seed=Dh,
+                        dev=card)
+    check_attention(q, k, v, causal=True, window=0)
+    check_attention(q, k, v, causal=False, window=24)
+
+
+def test_flash_attention_unaligned_q(card):
+    """A bf16 q view that is not 16-byte aligned takes the kernel's
+    element-wise Q copy and gives the contiguous q's result exactly."""
+    q, k, v = attn_case(2, 96, 96, 4, 2, 64, torch.bfloat16, seed=10,
+                        dev=card)
+    view = torch.cat([torch.zeros_like(q[..., :1]), q], dim=-1)[..., 1:]
+    assert view.data_ptr() % 16
+    torch.testing.assert_close(flash_attention(view, k, v, window=40),
+                               flash_attention(q, k, v, window=40),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype,Dh", [(torch.bfloat16, 256),
@@ -334,6 +390,17 @@ def test_flash_attention_rejects(card):
     with pytest.raises(ValueError):       # k not 16-byte aligned
         flash_attention(q, wide[..., 2:66], v)
     assert ops.kernel_launches()["flash_attention"] == before
+
+
+def test_kernel_attributes(card):
+    """Every library reports each of its kernels' registers and shared
+    memory (cudaFuncGetAttributes), as chip_smoke logs them."""
+    rows = ops.kernel_attributes()
+    assert {r["lib"] for r in rows} == set(ops.SIGNATURES)
+    assert all(0 < r["registers"] <= 255 for r in rows)
+    names = {r["kernel"] for r in rows}
+    assert "flash_attention bf16 Dh<=256" in names
+    assert "wkv6 Dh=64" in names
 
 
 def test_recurrentgemma_prefill_on_card_matches_cpu(card):

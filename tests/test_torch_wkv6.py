@@ -11,8 +11,14 @@ Tolerances:
   ``wkv_chunked``) meets a sequential one — the JAX package's own
   tolerance between the two (tests/test_kernels.py): the chunked form
   scales by exp(±Σ log w) and rounds differently in float32;
-* rtol=atol=1e-5 between like forms (float32, summed in another order).
+* rtol=atol=1e-5 between like forms (float32, summed in another order);
+* rtol=atol=1e-4 for the CUDA kernel's chunked form (chunks of 16 steps,
+  ragged last chunk) against the port's ``wkv_chunked(chunk=16)``, the
+  plain version and the Pallas kernel at ``chunk=16``: the kernel's own
+  tolerance against the plain version on the card.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +33,9 @@ from repro_torch.models import blocks as PB
 
 FORMS_TOL = dict(rtol=1e-3, atol=1e-3)
 LIKE_TOL = dict(rtol=1e-5, atol=1e-5)
+KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
+CLIP_FLOOR = math.exp(-math.exp(0.5))    # the model's smallest decay
+KERNEL_CHUNK = 16
 # (S, H, Dh, chunk) of the JAX package's own WKV-6 kernel test
 SHAPES = [(64, 2, 16, 16), (128, 4, 32, 32), (96, 1, 8, 32)]
 
@@ -152,3 +161,89 @@ def test_mixed_devices_raise():
     r, k, v, w, u = map(t, wkv_inputs(1, 8, 2, 16, seed=11))
     with pytest.raises(ValueError):
         wkv6(r, k, v, w, u.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's chunked form, emulated on the CPU.
+# ---------------------------------------------------------------------------
+
+def kernel_form(r, k, v, w, u, chunk=KERNEL_CHUNK):
+    """WKV-6 as ``csrc/wkv6.cu`` computes it, in float32: chunks of
+    ``chunk`` steps, steps past S padded with w = 1 and r = k = v = 0;
+    within a chunk cum = Σ log2 w (inclusive), ce the exclusive sum, cl
+    its last value; q_eff = r 2^ce, k_in = k 2^-cum, k_out = k 2^(cl -
+    cum); A = q_eff k_inᵀ below the diagonal and Σ r k u on it; o =
+    q_eff S + A v; S ← 2^cl ⊙ S + k_outᵀ v."""
+    B, S, H, D = r.shape
+    n = -(-S // chunk)
+    pad = n * chunk - S
+
+    def padded(t, fill):
+        tail = torch.full((B, pad, H, D), fill, dtype=torch.float32)
+        return torch.cat([t, tail], dim=1)
+
+    def chunks(t):        # (B, n*chunk, H, D) -> (n, B, H, chunk, D)
+        return t.reshape(B, n, chunk, H, D).permute(1, 0, 3, 2, 4)
+
+    lw = torch.log2(torch.clamp_min(w, 1e-38))
+    rc, kc, vc, lc = (chunks(padded(t, 0.0)) for t in (r, k, v, lw))
+    below = torch.tril(torch.ones(chunk, chunk), -1)
+    state = torch.zeros(B, H, D, D)
+    outs = []
+    for i in range(n):
+        cum = torch.cumsum(lc[i], dim=2)
+        ce = cum - lc[i]
+        cl = cum[..., -1:, :]
+        q_eff = rc[i] * torch.exp2(ce)
+        k_in = kc[i] * torch.exp2(-cum)
+        k_out = kc[i] * torch.exp2(cl - cum)
+        A = torch.einsum("bhck,bhsk->bhcs", q_eff, k_in) * below
+        A = A + torch.diag_embed(torch.einsum("bhck,hk->bhc",
+                                              rc[i] * kc[i], u))
+        outs.append(torch.einsum("bhck,bhkv->bhcv", q_eff, state)
+                    + torch.einsum("bhcs,bhsv->bhcv", A, vc[i]))
+        state = state * torch.exp2(cl).transpose(-1, -2) + \
+            torch.einsum("bhsk,bhsv->bhkv", k_out, vc[i])
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, n * chunk, H, D)
+    return out[:, :S], state
+
+
+def kernel_inputs(S, Dh, decay, seed):
+    r, k, v, w, u = wkv_inputs(2, S, 3, Dh, seed)
+    if decay == "clip_floor":
+        w = np.full_like(w, CLIP_FLOOR)
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("decay", ["normal", "clip_floor"])
+@pytest.mark.parametrize("S,Dh", [(512, 64), (97, 64), (128, 16),
+                                  (33, 128)])
+def test_kernel_form_matches_plain(S, Dh, decay):
+    """At the serve head dim and long chunks, ragged S included."""
+    arrs = kernel_inputs(S, Dh, decay, seed=S + Dh)
+    got = kernel_form(*map(t, arrs))
+    want = wkv6_ref(*map(t, arrs))
+    for g, x in zip(got, want):
+        close(g, x, KERNEL_TOL)
+
+
+@pytest.mark.parametrize("decay", ["normal", "clip_floor"])
+@pytest.mark.parametrize("S,Dh", [(512, 64), (64, 32)])
+def test_kernel_form_matches_wkv_chunked(S, Dh, decay):
+    arrs = list(map(t, kernel_inputs(S, Dh, decay, seed=S + 2 * Dh)))
+    got = kernel_form(*arrs)
+    zero = torch.zeros(2, 3, Dh, Dh)
+    want = PB.wkv_chunked(*arrs, zero, chunk=KERNEL_CHUNK)
+    for g, x in zip(got, want):
+        close(g, x, KERNEL_TOL)
+
+
+@pytest.mark.parametrize("decay", ["normal", "clip_floor"])
+@pytest.mark.parametrize("S,Dh", [(256, 64), (48, 8)])
+def test_kernel_form_matches_pallas_interpret(S, Dh, decay):
+    """The Pallas kernel at ``chunk=16`` (it asserts S % chunk == 0)."""
+    arrs = kernel_inputs(S, Dh, decay, seed=S + 3 * Dh)
+    got, _ = kernel_form(*map(t, arrs))
+    want = jwkv6(*map(jnp.asarray, arrs), chunk=KERNEL_CHUNK, interpret=True)
+    close(got, want, KERNEL_TOL)
+
