@@ -96,12 +96,17 @@ Phases, each of which must pass (any failure raises, exit code != 0):
     ``segsum_windowed`` over the same ids sorted (``torch.sort``, padding
     cut off, outside the timed call), ``spgemm_sel`` with 8 random
     columns in both rings; each against its plain version on the card
-    (segsums within rtol=1e-5, atol=1e-4 x max(1, max|plain|): float
-    atomics add in a run-dependent order; spgemm_sel within
-    rtol=atol=1e-6); times of kernel, plain version and library
-    yardstick (``index_add_`` on ids with the padding masked out
-    beforehand; ``torch.sparse.mm`` of the CSR matrix and the dense
-    one-hot selection) and the bytes bound.
+    (segsums within rtol=1e-5, atol=1e-4 x max(1, max|plain|): another
+    summation order, and segsum's float atomics add in a run-dependent
+    order; spgemm_sel within rtol=atol=1e-6); the segsums also within the
+    same limit of the float64 sum (atol x max(1, max|f64|)), and
+    ``segsum_windowed`` bit for bit across two calls; times of kernel,
+    plain version and library yardstick (``index_add_`` on ids with the
+    padding masked out beforehand; ``torch.sparse.mm`` of the CSR matrix
+    and the dense one-hot selection) and the bytes bound; for the segsums
+    also their device time from ``torch.profiler`` (by kernel) and the
+    wrapper's host time a call, beside the event time of back-to-back
+    calls.
 11. The paper's pipeline on the card (after phase 4): ``run_pipeline``
     of ``repro_torch.pipeline`` over 4 capture files of 15 s of the
     main-path traffic (about 120,000 packets, 1 MiB splits, 4 workers)
@@ -124,7 +129,8 @@ Phases, each of which must pass (any failure raises, exit code != 0):
     Launch counts are zeroed just before phase 11 and read just after
     this phase: exactly 1 ``segsum``, 2 ``segsum_windowed``, 2
     ``spgemm_sel`` and 2 ``spmm_ell``, none in phase 11.  The same calls
-    on CPU tensors (plain versions) give the same arrays.
+    on CPU tensors (plain versions) give the same arrays.  The segsums
+    and ``spgemm_sel`` are then measured at these shapes as in phase 10.
 
 Prints each kernel's registers and shared memory (``cudaFuncGetAttributes``
 through each library's ``<lib>_attrs``), the card's name and power limit,
@@ -221,7 +227,7 @@ SEGSUMS = {"segsum": dict(fn=segsum,
            "segsum_windowed": dict(fn=segsum_windowed,
                                    replaces="src/repro/kernels/segsum.py:107")}
 SEL_REPLACES = "src/repro/kernels/spmm.py:149"
-SEG_RTOL, SEG_ATOL = 1e-5, 1e-4    # atol x max(1, max|plain|); float atomics
+SEG_RTOL, SEG_ATOL = 1e-5, 1e-4    # atol x max(1, max|plain|); sum order
 SEL_RTOL, SEL_ATOL = 1e-6, 1e-6    # another summation order
 SEL_B = 8
 PIPE_CFG = dict(n_files=4, duration_per_file_s=15.0, split_size=1 << 20,
@@ -415,10 +421,26 @@ def sel_bound(ecols: torch.Tensor, b: int):
                     2 * int((ecols >= 0).sum()) * b)
 
 
+def wrapper_host_ms(fn, iters: int = 50) -> float:
+    """Host time of one call of ``fn`` (the Python wrapper and the
+    launch), back to back without a synchronise after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return t
+
+
 def measure_segsum(name: str, ids, vals, n_seg: int) -> dict:
-    """Kernel against its plain version on the same inputs, then kernel,
-    plain version and ``index_add_`` (ids outside [0, n_seg) masked out
-    beforehand, untimed) timed."""
+    """Kernel against its plain version and against the float64 sum on
+    the same inputs (the windowed kernel also against itself: two calls,
+    the same bits), then kernel, plain version and ``index_add_`` (ids
+    outside [0, n_seg) masked out beforehand, untimed) timed; the kernel
+    also by its device time (``torch.profiler``) and the wrapper's host
+    time."""
     fn = SEGSUMS[name]["fn"]
     got = fn(ids, vals, n_seg)
     want = segsum_ref(ids, vals, n_seg)
@@ -438,8 +460,25 @@ def measure_segsum(name: str, ids, vals, n_seg: int) -> dict:
     out["err_vs_f64"] = {k: float((x.double() - exact).abs().max())
                          if n_seg else 0.0
                          for k, x in (("kernel", got), ("plain", want))}
-    del got, want, exact
+    # the same limit, against the exact sum
+    atol64 = SEG_ATOL * max(1.0, float(exact.abs().max()))
+    used = (got.double() - exact).abs() / (atol64 + SEG_RTOL * exact.abs())
+    out["tol_used_f64"] = float(used.max()) if n_seg else 0.0
+    check(out["tol_used_f64"] <= 1.0,
+          f"{name}: {out['err_vs_f64']['kernel']} from the float64 sum, "
+          f"{out['tol_used_f64']:.3f} of rtol={SEG_RTOL}, atol={SEG_ATOL} "
+          f"x max(1, max|f64|)")
+    if name == "segsum_windowed":
+        check(torch.equal(got, fn(ids, vals, n_seg)),
+              f"{name}: two calls differ")
+        out["bit_identical"] = True
+    del got, want, exact, used
     out["ms"] = timed_ms(lambda: fn(ids, vals, n_seg))
+    split, _ = profiled_kernels(lambda: fn(ids, vals, n_seg), iters=5)
+    check(bool(split), f"{name}: the profiler saw no device work")
+    out["device_ms"] = sum(split.values())
+    out["device_split_ms"] = {k[:48]: v for k, v in split.items()}
+    out["host_ms"] = wrapper_host_ms(lambda: fn(ids, vals, n_seg))
     out["plain_ms"] = timed_ms(lambda: segsum_ref(ids, vals, n_seg), iters=5)
     out["library_ms"] = timed_ms(lambda: torch.zeros(
         n_seg, device=vals.device).index_add_(0, ids_k, vals_k))
@@ -503,8 +542,12 @@ def new_kernels_at_window(ecols, evals, n_cols: int) -> dict:
             f"{m['bound_ms']:.4f} ms ({m['bound_by']}), max abs err "
             f"{m['max_abs_err']:.3g}"
             + (f", against float64 {m['err_vs_f64']}, share of tolerance "
-               f"used {m['tol_used']:.4f} (max |plain| {m['max_plain']})"
-               if "err_vs_f64" in m else ""))
+               f"used {m['tol_used']:.4f} against the plain version and "
+               f"{m['tol_used_f64']:.4f} against float64 (max |plain| "
+               f"{m['max_plain']}); device {m['device_ms']:.4f} ms "
+               f"{m['device_split_ms']}, wrapper host {m['host_ms']:.4f} ms"
+               + (", two calls bit-identical" if m.get("bit_identical")
+                  else "") if "err_vs_f64" in m else ""))
     return res
 
 
@@ -793,7 +836,11 @@ def pipeline_kernels(E: Assoc, db, hosts: list, dev, times: dict) -> dict:
     for name, m in main.items():
         log(f"[pipeline] {name} at {m['shape']}: kernel {m['ms']:.4f} ms, "
             f"plain {m['plain_ms']:.4f} ms, library {m['library_ms']} ms, "
-            f"bound {m['bound_ms']:.5f} ms")
+            f"bound {m['bound_ms']:.5f} ms"
+            + (f"; device {m['device_ms']:.4f} ms {m['device_split_ms']}, "
+               f"wrapper host {m['host_ms']:.4f} ms, against float64 "
+               f"{m['err_vs_f64']['kernel']} ({m['tol_used_f64']:.4f} of "
+               f"the tolerance)" if "device_ms" in m else ""))
     return dict(launches=launches, main_shapes=main)
 
 
@@ -953,23 +1000,36 @@ def serve_prompts() -> list:
     return prompts
 
 
-def device_share(fn, host_ms: float) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: the CUDA kernels it
-    ran, their summed device time (one stream, so no overlap), and that
-    time's share of ``host_ms``, the call's time measured without the
-    profiler.  ``None`` values when the profiler saw no device work."""
+def profiled_kernels(fn, iters: int = 1) -> tuple[dict, int]:
+    """``iters`` calls of ``fn`` under ``torch.profiler``: the device time
+    a call of each CUDA kernel (and memset) it ran, by name, in ms (one
+    stream, so the times add up), and the number of kernels run."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
+    split: dict = {}
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    if not kernels:
+    for e in kernels:
+        split[e.name] = split.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3 / iters
+    return split, len(kernels)
+
+
+def device_share(fn, host_ms: float) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the CUDA kernels it
+    ran, their summed device time, and that time's share of ``host_ms``,
+    the call's time measured without the profiler.  ``None`` values when
+    the profiler saw no device work."""
+    split, n_kernels = profiled_kernels(fn)
+    if not n_kernels:
         return {"device_kernels": None, "device_ms": None, "busy": None}
-    return {"device_kernels": len(kernels), "device_ms": busy_ms,
+    busy_ms = sum(split.values())
+    return {"device_kernels": n_kernels, "device_ms": busy_ms,
             "busy": busy_ms / host_ms}
 
 
@@ -1500,6 +1560,8 @@ def main() -> int:
     })
     keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")
+    seg_keys = keys + ("device_ms", "device_split_ms", "host_ms",
+                       "err_vs_f64", "tol_used_f64")
     for name, spec in SEGSUMS.items():
         head, main_m = new_window[name], piped["main_shapes"][name]
         rows.append({
@@ -1512,8 +1574,12 @@ def main() -> int:
             "library": "torch.zeros(S).index_add_(0, ids, vals), ids outside "
                        "[0, S) masked out beforehand",
             "shape": head["shape"], "err_vs_f64": head["err_vs_f64"],
-            "tol_used": head["tol_used"],
-            "main_path": {k: main_m[k] for k in keys},
+            "tol_used": head["tol_used"], "tol_used_f64": head["tol_used_f64"],
+            "device_ms": head["device_ms"],
+            "device_split_ms": head["device_split_ms"],
+            "host_ms": head["host_ms"],
+            "bit_identical": head.get("bit_identical"),
+            "main_path": {k: main_m[k] for k in seg_keys},
         })
     sel_w, main_m = new_window["spgemm_sel"], piped["main_shapes"]["spgemm_sel"]
     head = sel_w["plus_times"]

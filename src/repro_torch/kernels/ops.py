@@ -49,8 +49,9 @@ SIGNATURES = {
     },
     "segsum": {
         "segsum_forward": (_VOIDP, _VOIDP, _VOIDP, _I64, _I64, _INT, _VOIDP),
-        "segsum_windowed_forward": (_VOIDP, _VOIDP, _VOIDP, _I64, _I64, _INT,
-                                    _VOIDP),
+        "segsum_windowed_forward": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, _I64,
+                                    _I64, _I64, _INT, _VOIDP),
+        "segsum_windowed_range": (),
         "segsum_attrs": _ATTRS,
     },
     "wkv6": {

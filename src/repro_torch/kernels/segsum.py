@@ -13,6 +13,8 @@ have no counterpart here.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import ops
@@ -39,16 +41,30 @@ def check_segsum(ids: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"num_segments must be >= 0, got {num_segments}")
 
 
+@functools.cache
+def _range_ids() -> int:
+    """Ids one range of the windowed kernel takes (its scratch holds one
+    16-byte record a range)."""
+    return ops.load("segsum").segsum_windowed_range()
+
+
 def _launch(fn: str, kernel: str, ids: torch.Tensor, vals: torch.Tensor,
             num_segments: int) -> torch.Tensor:
     if not ops.on_cuda(ids, vals):
         return segsum_ref(ids, vals, num_segments)
     ids = ids.to(torch.int32)
-    out = torch.zeros(num_segments, dtype=torch.float32, device=vals.device)
-    if ids.numel() and num_segments:
-        ops.launch("segsum", fn, kernel, vals.device, ids.data_ptr(),
-                   vals.data_ptr(), out.data_ptr(), ids.numel(),
-                   num_segments, int(vals.dtype == torch.bfloat16))
+    nnz, dev = ids.numel(), vals.device
+    if not (nnz and num_segments):
+        return torch.zeros(num_segments, dtype=torch.float32, device=dev)
+    out = torch.empty(num_segments, dtype=torch.float32, device=dev)
+    extra = ()
+    if kernel == "segsum_windowed":
+        n_ranges = -(-nnz // _range_ids()) + 1   # the first may be short
+        scratch = torch.empty(4 * n_ranges, dtype=torch.int32, device=dev)
+        extra = (scratch.data_ptr(), n_ranges)
+    ops.launch("segsum", fn, kernel, dev, ids.data_ptr(), vals.data_ptr(),
+               out.data_ptr(), *extra, nnz, num_segments,
+               int(vals.dtype == torch.bfloat16))
     return out
 
 
@@ -63,10 +79,11 @@ def segsum(ids: torch.Tensor, vals: torch.Tensor,
 
 def segsum_windowed(ids: torch.Tensor, vals: torch.Tensor,
                     num_segments: int) -> torch.Tensor:
-    """:func:`segsum` for ids sorted ascending in [0, num_segments) — a
-    sorted reduce-by-key that writes each run once.  The order is not
-    checked: on the card, unsorted ids give a wrong sum.  Returns float32
-    (num_segments,)."""
+    """:func:`segsum` for ids sorted ascending — a sorted reduce-by-key
+    that writes each output element once, in a fixed order (two calls
+    give the same bits).  Ids outside [0, num_segments) are dropped.  The
+    order is not checked: on the card, unsorted ids give wrong values.
+    Returns float32 (num_segments,)."""
     check_segsum(ids, vals, num_segments)
     return _launch("segsum_windowed_forward", "segsum_windowed", ids, vals,
                    num_segments)

@@ -16,9 +16,10 @@ tolerance between its flash kernel and the naive form) and in bfloat16
 rtol=atol=1e-2 against the plain version on the same values in float32
 (the kernel computes in float32 and rounds only its output to bf16, half
 an ulp: at most 0.0078 below 4); for segsum and segsum_windowed
-rtol=1e-5, atol=1e-4·max(1, max|plain|) (float atomics add in an order
-that changes from run to run) and exact equality for integer counts
-(below 2^24, every order gives the same float); for spgemm_sel exact
+rtol=1e-5, atol=1e-4·max(1, max|plain|) (another summation order; in
+segsum, float atomics add in an order that changes from run to run) and
+exact equality for integer counts (below 2^24, every order gives the same
+float); for spgemm_sel exact
 equality where each (row, j) has at most one stored hit, else rtol=atol=
 1e-6 (another summation order).
 """
@@ -549,6 +550,91 @@ def test_segsums_reject_bad_inputs(card, name):
     with pytest.raises(ValueError):
         fn(ids, vals.cpu(), 8)
     assert ops.kernel_launches()[name] == before
+
+
+def test_segsum_windowed_bit_identical(card):
+    """No atomics, so a fixed order: two calls give the same bits, with
+    one run of 1 M ids across hundreds of ranges; one launch a call."""
+    rng = np.random.default_rng(8)
+    ids = np.sort(np.concatenate([rng.integers(0, 50_000, 1_000_000),
+                                  np.full(1_000_000, 20_000)]))
+    ids = torch.from_numpy(ids.astype(np.int32)).to(card)
+    vals = torch.from_numpy(rng.normal(0, 1, ids.numel()).astype(
+        np.float32)).to(card)
+    before = ops.kernel_launches()["segsum_windowed"]
+    a = segsum_windowed(ids, vals, 50_000)
+    b = segsum_windowed(ids, vals, 50_000)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["segsum_windowed"] == before + 2
+    assert torch.equal(a, b)
+    seg_close(a, segsum_ref(ids, vals, 50_000))
+
+
+def test_segsum_windowed_writes_every_element(card):
+    """The output comes from torch.empty: memory the caching allocator
+    hands back full of NaN must leave no NaN, with empty segments below,
+    between (also across range edges) and above the ids."""
+    n_seg = 3_000_000
+    rng = np.random.default_rng(9)
+    ids = np.sort(np.concatenate([rng.integers(1000, 2_900_000, 400_000),
+                                  rng.integers(5000, 5100, 100_000)]))
+    ids = torch.from_numpy(ids.astype(np.int32)).to(card)
+    ones = torch.ones(ids.numel(), device=card)
+    junk = torch.full((n_seg,), float("nan"), device=card)
+    del junk
+    got = segsum_windowed(ids, ones, n_seg)
+    assert not got.isnan().any()
+    assert torch.equal(got, segsum_ref(ids, ones, n_seg))
+    assert not got[:1000].any() and not got[2_900_000:].any()
+
+
+def test_segsum_windowed_drops_out_of_range(card):
+    """Sorted ids with the ELL's -1 padding first and ids at or past
+    num_segments last: dropped, and the segments around them zeroed."""
+    rng = np.random.default_rng(10)
+    ids = np.sort(np.concatenate([np.full(9000, -1),
+                                  rng.integers(3, 700, 20_000),
+                                  np.full(7000, 800), [10**6] * 5]))
+    ids = torch.from_numpy(ids.astype(np.int32)).to(card)
+    vals = torch.from_numpy(rng.normal(0, 1, ids.numel()).astype(
+        np.float32)).to(card)
+    seg_close(segsum_windowed(ids, vals, 800), segsum_ref(ids, vals, 800))
+    ones = torch.ones(ids.numel(), device=card)
+    assert torch.equal(segsum_windowed(ids, ones, 800),
+                       segsum_ref(ids, ones, 800))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(SEGSUMS))
+def test_segsums_unaligned_views(card, name, dtype):
+    """Views that start off a 16-byte boundary: ids and values shifted
+    alike (the kernels realign their 16-byte loads) and shifted apart (no
+    common alignment: element-wise loads)."""
+    ids, vals = seg_case(50_003, 900, seed=12, dev=card,
+                         sort=name == "segsum_windowed", dtype=dtype)
+    for a, b in ((1, 1), (3, 3), (1, 2), (2, 5)):
+        n = ids.numel() - 5
+        i, v = ids[a:a + n], vals[b:b + n]
+        seg_close(SEGSUMS[name](i, v, 900), segsum_ref(i, v, 900))
+        ones = torch.ones(n + 8, device=card, dtype=dtype)[b:b + n]
+        assert torch.equal(SEGSUMS[name](i, ones, 900),
+                           segsum_ref(i, ones, 900))
+
+
+def test_segsum_hot_id_counts_exact(card):
+    """One id holds 90% of 4 M shuffled ids: unit values still count
+    exactly (every partial an integer below 2^24), one launch."""
+    rng = np.random.default_rng(11)
+    ids = np.where(rng.random(4_000_000) < 0.9, 7,
+                   rng.integers(0, 100_000, 4_000_000)).astype(np.int32)
+    ids = torch.from_numpy(ids).to(card)
+    ones = torch.ones(ids.numel(), device=card)
+    before = ops.kernel_launches()["segsum"]
+    got = segsum(ids, ones, 100_000)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["segsum"] == before + 1
+    assert torch.equal(got, torch.bincount(ids.long(),
+                                           minlength=100_000).float())
 
 
 def sel_case(R, C, K, B, seed, dev, distinct=False):

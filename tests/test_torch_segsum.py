@@ -4,7 +4,10 @@ on the CPU) and oracles, on identical numpy inputs.
 
 The port's wrappers run their plain versions on CPU tensors; the CUDA
 kernels themselves are held against those plain versions on the card by
-tests/test_torch_cuda.py and ``chip_smoke.py``.
+tests/test_torch_cuda.py and ``chip_smoke.py``.  Here a numpy emulation of
+the windowed kernel's algorithm (ranges, their partials, the combine in
+range order, the zeros of the gaps) is held against the Pallas kernel and
+the plain version at small range sizes.
 
 Tolerances:
 * segsum / segsum_windowed: rtol=1e-5, atol=1e-4 in float32 (the JAX
@@ -18,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _hyp import given, settings, st  # hypothesis, skipping when absent
 
 from repro.kernels import ref as jref
 from repro.kernels.segsum import segsum as jsegsum
@@ -175,6 +179,298 @@ class TestSegsumWindowed:
         np.testing.assert_array_equal(
             segsum_windowed(t(ids), t(vals), 700).numpy(),
             segsum(t(ids), t(vals), 700).numpy())
+
+
+def emulate_windowed(ids, vals, n_seg, tile, order=None, shift=0):
+    """numpy model of ``segsum_windowed`` in ``csrc/segsum.cu``.
+
+    Range b holds ids [b * tile - shift, (b + 1) * tile - shift) cut to
+    [0, nnz) (the kernel shifts the ranges so that all but the first start
+    aligned).  Phase 1 takes the ranges in ``order`` (any permutation:
+    blocks finish in no order): each stores the runs that begin and end
+    inside it, keeps the sums of its first and last runs with how they
+    meet its neighbours, and stores zeros for the segments below each of
+    its heads (and, in the last range, above the last id).  Phase 2: the
+    range where a run that crosses range edges begins adds the partials
+    of the ranges it covers, in range order (the kernel reduces each step
+    of 128 ranges in a fixed tree), and stores the sum.  Sums are float32.
+    Returns ``out`` (NaN where nothing was stored) and each element's
+    count of stores."""
+    ids = np.asarray(ids, np.int64)
+    vals = np.asarray(vals, np.float32)
+    nnz = ids.size
+    c = np.where(ids < 0, -1, np.minimum(ids, n_seg))   # the kernel's clamp
+    out = np.full(n_seg, np.nan, np.float32)
+    writes = np.zeros(n_seg, np.int64)
+
+    def store(lo, hi, x):
+        lo, hi = max(lo, 0), min(hi, n_seg)
+        if lo < hi:
+            out[lo:hi] = x
+            writes[lo:hi] += 1
+
+    n_ranges = -(-(nnz + shift) // tile)
+    parts = [dict() for _ in range(n_ranges)]
+    for b in (range(n_ranges) if order is None else order):
+        lo, hi = max(0, b * tile - shift), min(nnz, (b + 1) * tile - shift)
+        from_prev = lo > 0 and c[lo - 1] == c[lo]
+        into_next = hi < nnz and c[hi] == c[hi - 1]
+        heads = [i for i in range(lo, hi) if i == 0 or c[i] != c[i - 1]]
+        cuts = [lo] + [h for h in heads if h > lo] + [hi]
+        for j in range(len(cuts) - 1):
+            r = np.float32(0.0)
+            for x in vals[cuts[j]:cuts[j + 1]]:
+                r = np.float32(r + x)
+            first, last = j == 0, j == len(cuts) - 2
+            if first:
+                parts[b]["first"] = r
+            if last:
+                parts[b].update(last=r, single=first, from_prev=from_prev,
+                                into_next=into_next)
+            if not ((first and from_prev) or (last and into_next)):
+                store(c[cuts[j]], c[cuts[j]] + 1, r)
+        for h in heads:
+            below = c[h - 1] if h > 0 else -1
+            store(max(below, -1) + 1, c[h], 0.0)
+        if hi == nnz:
+            store(c[nnz - 1] + 1, n_seg, 0.0)
+    for b, p in enumerate(parts):
+        if not p["into_next"] or (p["single"] and p["from_prev"]):
+            continue
+        total, k = p["last"], b + 1
+        while True:
+            total = np.float32(total + parts[k]["first"])
+            if not (parts[k]["single"] and parts[k]["into_next"]):
+                break
+            k += 1
+        end = c[(b + 1) * tile - shift - 1]
+        store(end, end + 1, total)
+    return out, writes
+
+
+def windowed_cases():
+    """(name, ids, n_seg, tile): sorted ids that stress range edges."""
+    rng = np.random.default_rng(21)
+    return [
+        ("one_run_over_all", np.full(300, 4), 9, 16),
+        ("runs_over_many_ranges", np.repeat(np.arange(6),
+                                            [100, 3, 57, 1, 40, 77]), 6, 8),
+        ("gaps_everywhere", np.repeat([3, 4, 9, 17, 18, 30], 4), 40, 8),
+        ("gap_at_range_edge", np.repeat([1, 6, 7, 12], [8, 8, 5, 3]), 15, 8),
+        ("range_ends_at_run_end", np.repeat([0, 2, 5, 6], 4), 8, 4),
+        ("single_element", np.array([5]), 11, 4),
+        ("dropped_ids", np.concatenate([np.full(7, -1), np.repeat(
+            [0, 2, 3], 5), np.full(6, 10), np.full(3, 12)]), 10, 8),
+        ("random_sorted", np.sort(rng.integers(0, 700, 5000)), 700, 64),
+        ("sparse", np.sort(rng.choice(100_000, 400, replace=False)),
+         100_000, 32),
+    ]
+
+
+WINDOWED_CASES = windowed_cases()
+
+
+class TestWindowedEmulation:
+    """The windowed kernel's algorithm against the Pallas kernel (ids
+    outside [0, n_seg) dropped beforehand, as it has no such ids) and the
+    plain version: within SEG_TOL, exactly for unit values, every element
+    stored once, and the same bits whatever order the ranges run in."""
+
+    @pytest.mark.parametrize("shift", [0, 3])
+    @pytest.mark.parametrize("name,ids,n_seg,tile", WINDOWED_CASES,
+                             ids=[c[0] for c in WINDOWED_CASES])
+    def test_matches_pallas_and_plain(self, name, ids, n_seg, tile, shift):
+        rng = np.random.default_rng(len(ids))
+        ids = ids.astype(np.int32)
+        for vals in (rng.normal(0, 1, ids.size).astype(np.float32),
+                     np.ones(ids.size, np.float32)):
+            got, writes = emulate_windowed(ids, vals, n_seg, tile,
+                                           shift=shift % tile)
+            assert (writes == 1).all()
+            plain = segsum_ref(t(ids), t(vals), n_seg).numpy()
+            keep = (ids >= 0) & (ids < n_seg)
+            want = jsegsum_windowed(jnp.asarray(ids[keep]),
+                                    jnp.asarray(vals[keep]), n_seg,
+                                    block_nnz=64, block_seg=64)
+            if (vals == 1).all():
+                np.testing.assert_array_equal(got, plain)
+                np.testing.assert_array_equal(got, np.asarray(want))
+            else:
+                np.testing.assert_allclose(got, plain, **SEG_TOL)
+                np.testing.assert_allclose(got, np.asarray(want), **SEG_TOL)
+
+    def test_bf16_values(self):
+        ids = np.repeat(np.arange(0, 60, 3), 37).astype(np.int32)
+        jv = jnp.asarray(np.random.default_rng(3).normal(
+            0, 1, ids.size).astype(np.float32)).astype(jnp.bfloat16)
+        vals = np.array(jv.astype(jnp.float32))     # the bf16 values, exact
+        got, writes = emulate_windowed(ids, vals, 60, 16)
+        assert (writes == 1).all()
+        want = jsegsum_windowed(jnp.asarray(ids), jv, 60, block_nnz=64,
+                                block_seg=64)
+        np.testing.assert_allclose(got, np.asarray(want), **BF16_TOL)
+        tv = torch.from_numpy(vals).to(torch.bfloat16)
+        np.testing.assert_allclose(got, segsum_ref(t(ids), tv, 60).numpy(),
+                                   **SEG_TOL)
+
+    @pytest.mark.parametrize("name,ids,n_seg,tile", WINDOWED_CASES[:5],
+                             ids=[c[0] for c in WINDOWED_CASES[:5]])
+    def test_range_order_does_not_matter(self, name, ids, n_seg, tile):
+        rng = np.random.default_rng(7)
+        vals = rng.normal(0, 1, ids.size).astype(np.float32)
+        ref, _ = emulate_windowed(ids, vals, n_seg, tile)
+        n_ranges = -(-ids.size // tile)
+        for _ in range(4):
+            got, _ = emulate_windowed(ids, vals, n_seg, tile,
+                                      order=rng.permutation(n_ranges))
+            assert got.tobytes() == ref.tobytes()
+
+    @settings(max_examples=60, deadline=None)
+    @given(runs=st.lists(st.tuples(st.integers(-2, 40), st.integers(1, 30)),
+                         min_size=1, max_size=25),
+           tile=st.sampled_from([1, 2, 3, 8, 32]),
+           n_seg=st.integers(1, 41), shift=st.integers(0, 7))
+    def test_property_unit_counts(self, runs, tile, n_seg, shift):
+        ids = np.sort(np.repeat([r[0] for r in runs],
+                                [r[1] for r in runs])).astype(np.int32)
+        ones = np.ones(ids.size, np.float32)
+        got, writes = emulate_windowed(ids, ones, n_seg, tile,
+                                       shift=shift % tile)
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(
+            got, segsum_ref(t(ids), t(ones), n_seg).numpy())
+
+
+def emulate_segsum(ids, vals, n_seg, blocks=2, threads=8, slot_bits=4,
+                   cache=2, shift=0):
+    """numpy model of ``segsum``'s policy in ``csrc/segsum.cu``, at small
+    sizes (the kernel: one block of 1024 threads an SM, 2^14 slots, 8
+    cached ids a thread).
+
+    Thread g of the grid takes element g if g < ``shift``, then the groups
+    of four after ``shift`` in a grid-stride loop, then the rest; the
+    block's threads take their elements in turn.  An element goes to its
+    thread's cache of ``cache`` ids, else to the block's table (an id
+    hashes to one slot; the first id to reach an empty slot claims it),
+    else to ``out``.  An element of a claimed id enters the cache,
+    evicting the oldest entry into its slot.  At the end the caches are
+    summed by id across the block's lanes (as a warp does) into the table
+    and the table into ``out``.  Sums are float32."""
+    ids = np.asarray(ids, np.int64)
+    vals = np.asarray(vals, np.float32)
+    nnz = ids.size
+    out = np.zeros(n_seg, np.float32)
+    stride = blocks * threads
+
+    def elements(g):
+        e = [g] if g < min(shift, nnz) else []
+        n4 = max(nnz - shift, 0) // 4
+        for j in range(g, n4, stride):
+            e += [shift + 4 * j + q for q in range(4)]
+        rest = shift + 4 * n4 if nnz > shift else nnz
+        return e + list(range(rest + g, nnz, stride))
+
+    def slot(x):
+        return ((x * 2654435761) & 0xffffffff) >> (32 - slot_bits)
+
+    for b in range(blocks):
+        owner, table = {}, np.zeros(1 << slot_bits, np.float32)
+        cid = [[None] * cache for _ in range(threads)]
+        csum = [[np.float32(0)] * cache for _ in range(threads)]
+        nxt = [0] * threads
+        streams = [elements(b * threads + t) for t in range(threads)]
+        for step in range(max(map(len, streams))):
+            for t, stream in enumerate(streams):
+                if step >= len(stream):
+                    continue
+                x, v = int(ids[stream[step]]), vals[stream[step]]
+                if not 0 <= x < n_seg:
+                    continue
+                if x in cid[t]:
+                    c = cid[t].index(x)
+                    csum[t][c] = np.float32(csum[t][c] + v)
+                    continue
+                if owner.setdefault(slot(x), x) != x:
+                    out[x] = np.float32(out[x] + v)
+                    continue
+                c, old = nxt[t], cid[t][nxt[t]]
+                if old is not None:
+                    table[slot(old)] = np.float32(table[slot(old)]
+                                                  + csum[t][c])
+                cid[t][c], csum[t][c] = x, v
+                nxt[t] = (c + 1) % cache
+        for c in range(cache):
+            groups: dict = {}
+            for t in range(threads):
+                if cid[t][c] is not None:
+                    groups[cid[t][c]] = np.float32(
+                        groups.get(cid[t][c], np.float32(0)) + csum[t][c])
+            for x, g in groups.items():
+                table[slot(x)] = np.float32(table[slot(x)] + g)
+        for sl, x in owner.items():
+            out[x] = np.float32(out[x] + table[sl])
+    return out
+
+
+def hot_ids(n, n_seg, share, seed):
+    """Shuffled ids where one id holds ``share`` of them."""
+    rng = np.random.default_rng(seed)
+    ids = np.where(rng.random(n) < share, 3, rng.integers(0, n_seg, n))
+    return rng.permutation(ids).astype(np.int32)
+
+
+class TestSegsumEmulation:
+    """The scatter kernel's policy (register caches, claimed slots, global
+    adds) against the plain version and the Pallas kernel: unit values
+    count exactly, other values within SEG_TOL."""
+
+    @pytest.mark.parametrize("shift", [0, 3])
+    @pytest.mark.parametrize("case", ["hot", "random", "dropped"])
+    def test_matches_plain(self, case, shift):
+        rng = np.random.default_rng(31)
+        if case == "hot":
+            ids = hot_ids(3000, 200, 0.9, seed=1)
+        elif case == "random":
+            ids = rng.integers(0, 500, 2001).astype(np.int32)
+        else:
+            ids = rng.integers(-3, 130, 1500).astype(np.int32)
+            ids[::17] = 10**6
+        n_seg = 500 if case == "random" else (200 if case == "hot" else 120)
+        ones = np.ones(ids.size, np.float32)
+        np.testing.assert_array_equal(
+            emulate_segsum(ids, ones, n_seg, shift=shift),
+            segsum_ref(t(ids), t(ones), n_seg).numpy())
+        vals = rng.normal(0, 1, ids.size).astype(np.float32)
+        got = emulate_segsum(ids, vals, n_seg, shift=shift)
+        close(t(got), segsum_ref(t(ids), t(vals), n_seg).numpy(), **SEG_TOL)
+        keep = (ids >= 0) & (ids < n_seg)
+        close(t(got), jsegsum(jnp.asarray(ids[keep]), jnp.asarray(vals[keep]),
+                              n_seg, block_nnz=256, block_seg=128), **SEG_TOL)
+
+    def test_bf16_values(self):
+        ids = hot_ids(1200, 50, 0.5, seed=2)
+        jv = jnp.asarray(np.random.default_rng(3).normal(
+            0, 1, ids.size).astype(np.float32)).astype(jnp.bfloat16)
+        vals = np.array(jv.astype(jnp.float32))     # the bf16 values, exact
+        got = emulate_segsum(ids, vals, 50, threads=4, cache=3)
+        close(t(got), jsegsum(jnp.asarray(ids), jv, 50, block_nnz=128,
+                              block_seg=64), **BF16_TOL)
+        tv = torch.from_numpy(vals).to(torch.bfloat16)
+        close(t(got), segsum_ref(t(ids), tv, 50).numpy(), **SEG_TOL)
+
+    @settings(max_examples=40, deadline=None)
+    @given(n=st.integers(1, 300), n_seg=st.integers(1, 60),
+           share=st.floats(0.0, 1.0), seed=st.integers(0, 2**16),
+           shift=st.integers(0, 3), cache=st.integers(1, 4),
+           slot_bits=st.integers(1, 5))
+    def test_property_unit_counts(self, n, n_seg, share, seed, shift, cache,
+                                  slot_bits):
+        ids = hot_ids(n, n_seg, share, seed) % n_seg
+        ones = np.ones(n, np.float32)
+        np.testing.assert_array_equal(
+            emulate_segsum(ids, ones, n_seg, shift=shift, cache=cache,
+                           slot_bits=slot_bits),
+            np.bincount(ids, minlength=n_seg).astype(np.float32))
 
 
 class TestSegsumWrapper:
