@@ -131,6 +131,34 @@ Phases, each of which must pass (any failure raises, exit code != 0):
     ``spgemm_sel`` and 2 ``spmm_ell``, none in phase 11.  The same calls
     on CPU tensors (plain versions) give the same arrays.  The segsums
     and ``spgemm_sel`` are then measured at these shapes as in phase 10.
+13. The gateway over the net store (after phase 12): phase 3's window
+    (its incidence matrix: 120,239 packets, 1,082,151 nnz) through
+    ``put`` and ``flush`` into ``DB(..., backend="net", n_instances=2)``
+    with in-process shard servers on loopback, the stream
+    (``StreamAnalytics().attach``) attached before any ingest; then
+    ``repro_torch.serve.Gateway`` on 127.0.0.1:0, asked over HTTP with
+    ``urllib``: 8 concurrent ``/v1/topk`` (equal answers, a coalesced
+    batch of 2 or more), ``/v1/degree`` (n and the fit equal phase 3's
+    ``fit_degree_table``), ``/v1/c2?top_k=3`` (the injected C2, phase 3's
+    top 3), ``/v1/scanners`` and one column ``/v1/scan`` (equal to the
+    same calls on phase 3's memory table), a ``pagerank`` job (top 5 keys
+    and ranks equal to phase 3's ``pagerank_table``), ``/v1/windows``
+    (packets summed over the closed windows equal the window's),
+    ``/v1/stats`` (one ingest tap; ``kernel_launches`` equal to
+    ``launch_counts()``), 401 without a token and 429 with Retry-After
+    past a tenant's burst.  On the card, one ``/v1/c2`` request and one
+    PageRank job each allocate device tensors and show device time
+    under ``torch.profiler`` (which there drops a call's device records
+    at random, so up to 8 calls are profiled and the largest time kept).  Then the
+    attack scenario of ``tests/test_stream.py`` (c2, scan and ddos) block
+    by block into a second net-backed table with the tap: each attack
+    alerted in its truth window, naming its C2 server, scanner or
+    victim.  The same again with ``set_device("cpu")``: every answer
+    equal (keys and integers exactly, floats within rtol=1e-5,
+    atol=1e-7).  Launch counts are zeroed just before the card's run and
+    read just after: this path launches no hand-written kernel, and
+    none may run.  Logs each endpoint's median latency over 5 requests
+    after one warm-up, the ingest seconds and the phase's seconds.
 
 Prints each kernel's registers and shared memory (``cudaFuncGetAttributes``
 through each library's ``<lib>_attrs``), the card's name and power limit,
@@ -148,7 +176,10 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -156,11 +187,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import analytics  # noqa: E402
-from repro_torch.core import Assoc, eval_batch, lazy, parse_tsv, val2col  # noqa: E402
+from repro_torch import analytics, stream  # noqa: E402
+from repro_torch.core import (Assoc, StartsWith, eval_batch,  # noqa: E402
+                              lazy, parse_tsv, val2col)
 from repro_torch.core import expr as X  # noqa: E402
 from repro_torch.db import DB, MultiInstanceDB, put  # noqa: E402
-from repro_torch.device import set_device  # noqa: E402
+from repro_torch.device import get_device, set_device  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import spmm as kspmm  # noqa: E402
 from repro_torch.kernels import spmv as kspmv  # noqa: E402
@@ -179,6 +211,7 @@ from repro_torch.pipeline import (PipelineConfig,  # noqa: E402
                                   TrafficConfig, botnet_truth,
                                   records_to_tsv, run_pipeline,
                                   synth_packets)
+from repro_torch.serve import Gateway, Tenant, TokenAuth  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
@@ -238,6 +271,19 @@ PIPE_STAGES = ("generate", "uncompress", "split", "parse", "sort", "sparse",
 # one-hot cross-check in both rings
 PIPE_LAUNCHES = {"segsum": 1, "segsum_windowed": 2, "spgemm_sel": 2,
                  "spmm_ell": 2}
+GW_PACKETS, GW_NNZ = 120_239, 1_082_151    # phase 3's window
+GW_SHARDS = 2
+GW_TOKEN, GW_TIGHT = "analyst-token", "tight-token"
+GW_COALESCE_S = 0.05          # window for the 8 concurrent top-k requests
+GW_CONCURRENT, GW_REPEATS = 8, 5
+GW_PROFILE_CALLS, GW_PROFILE_HITS = 8, 2
+GW_HTTP_TIMEOUT = 120.0       # s: each HTTP request and each shard reply
+GW_ENDPOINTS = (("topk", "/v1/topk?prefix=ip.dst|&k=10"),
+                ("degree", "/v1/degree?prefix=ip.dst|"),
+                ("c2", "/v1/c2?top_k=3"),
+                ("scanners", "/v1/scanners"),
+                ("windows", "/v1/windows?level=second&limit=10000"),
+                ("stats", "/v1/stats"))
 
 
 class SmokeFailure(RuntimeError):
@@ -645,7 +691,8 @@ def main_path(device: str) -> dict:
     log(f"[main {device}] seconds: " +
         json.dumps({k: round(v, 4) for k, v in times.items()}))
     return dict(fit=(float(fit.alpha), float(fit.r2)), c2=list(rep.hosts),
-                batch=batch, solo=solo, hosts=hosts, pr=pr, times=times)
+                batch=batch, solo=solo, hosts=hosts, pr=pr, times=times,
+                table=T, E=E, n_packets=rec.shape[0])
 
 
 def compare_paths(card: dict, cpu: dict) -> None:
@@ -1410,6 +1457,346 @@ def rg_serve_path(dev: torch.device) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 13: the gateway over the net store, with the stream attached.
+# ---------------------------------------------------------------------------
+
+def http(addr: str, path: str, token: str | None = GW_TOKEN,
+         method: str = "GET", body: dict | None = None):
+    """One request to the gateway: (status, decoded JSON, headers).  A
+    non-2xx status is an answer here, not a failure of the call."""
+    hdrs = {} if token is None else {"Authorization": f"Bearer {token}"}
+    data = None if body is None else json.dumps(body).encode()
+    if data is not None:
+        hdrs["Content-Type"] = "application/json"
+    r = urllib.request.Request(f"http://{addr}{path}", data=data,
+                               headers=hdrs, method=method)
+    try:
+        with urllib.request.urlopen(r, timeout=GW_HTTP_TIMEOUT) as resp:
+            return resp.status, json.loads(resp.read()), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null"), dict(e.headers)
+
+
+def run_job(addr: str, kind: str, params: dict) -> dict:
+    """Submit a background job, poll its status, return its result."""
+    s, d, _ = http(addr, "/v1/jobs", method="POST",
+                   body={"kind": kind, "params": params})
+    check(s == 200, f"[gateway] job {kind} submit: {s} {d}")
+    deadline = time.monotonic() + GW_HTTP_TIMEOUT
+    while True:
+        s, st, _ = http(addr, f"/v1/jobs/{d['job']}")
+        check(s == 200 and st["status"] != "failed",
+              f"[gateway] job {kind}: {s} {st}")
+        if st["status"] == "done":
+            break
+        check(time.monotonic() < deadline, f"[gateway] job {kind} timed out")
+        time.sleep(0.01)
+    s, res, _ = http(addr, f"/v1/jobs/{d['job']}/result")
+    check(s == 200, f"[gateway] job {kind} result: {s} {res}")
+    return res["result"]
+
+
+def same_json(got, want, path: str = "$") -> None:
+    """Keys, strings and integers exactly; floats within PATH_RTOL /
+    PATH_ATOL (NaN equal to NaN)."""
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and set(got) == set(want),
+              f"{path}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            same_json(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        check(isinstance(got, (list, tuple)) and len(got) == len(want),
+              f"{path}: length {len(got)} != {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_json(g, w, f"{path}[{i}]")
+    elif isinstance(want, float):
+        check(isinstance(got, float) and (
+            (np.isnan(got) and np.isnan(want)) or
+            abs(got - want) <= PATH_ATOL + PATH_RTOL * abs(want)),
+            f"{path}: {got} != {want}")
+    else:
+        check(type(got) is type(want) and got == want,
+              f"{path}: {got!r} != {want!r}")
+
+
+def median_ms(fn, n: int = GW_REPEATS) -> float:
+    """Median wall time of ``fn()`` in ms over ``n`` calls after one
+    warm-up call."""
+    fn()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def device_allocations(fn) -> int:
+    """Device tensors allocated during ``fn()``, whichever thread made
+    them (the caching allocator's count)."""
+    key = "allocation.all.allocated"
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_stats().get(key, 0)
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_stats().get(key, 0) - a0
+
+
+def profiled_device_ms(fn) -> dict:
+    """Device time of one ``fn()`` under ``torch.profiler``, kernels and
+    copies, whichever thread launched them.  On the card machine the
+    profiler drops a call's device records at random once the process
+    has run a while (none, some or all of them), so up to
+    ``GW_PROFILE_CALLS`` calls are profiled, each alone, and the largest
+    device time is kept, stopping after ``GW_PROFILE_HITS`` calls that
+    showed any: a lower bound on one call's device time."""
+    best = {"device_ms": 0.0, "kernels": 0, "wall_ms": None}
+    hits = calls = 0
+    while calls < GW_PROFILE_CALLS and hits < GW_PROFILE_HITS:
+        t0 = time.perf_counter()
+        split, n_kernels = profiled_kernels(fn)
+        wall = (time.perf_counter() - t0) * 1e3
+        calls += 1
+        ms = sum(split.values())
+        hits += ms > 0
+        if ms > best["device_ms"]:
+            best = {"device_ms": ms, "kernels": n_kernels, "wall_ms": wall}
+    return dict(best, calls_with_device_time=hits, calls=calls)
+
+
+def attack_scenario() -> "stream.ScenarioConfig":
+    """``tests/test_stream.py``'s ``attack_cfg(seed=3)``: 150 s of diurnal
+    background with one c2, scan and ddos attack."""
+    return stream.ScenarioConfig(
+        duration_s=150.0, n_hosts=96, base_rate=70.0, seed=3,
+        t0=1_492_000_000.0, attacks=(
+            stream.AttackSpec("c2", start=5, duration=140, n_hosts=8,
+                              period_s=2.0, port=6667),
+            stream.AttackSpec("scan", start=30, duration=10, rate=60.0),
+            stream.AttackSpec("ddos", start=85, duration=10, n_hosts=8,
+                              rate=40.0, port=80)))
+
+
+def stream_scenario(device: str) -> tuple[list, float]:
+    """The attack scenario block by block into a second net-backed table
+    with the rollup tap: each block flushed, then one detector pass.
+    Every attack must be alerted inside its truth window and name its
+    C2 server, scanner or victim."""
+    cfg = attack_scenario()
+    rec, truth = stream.synth_scenario(cfg)
+    T2 = DB("Tedge", "TedgeT", "TedgeDeg", backend="net",
+            n_instances=GW_SHARDS, io_timeout=GW_HTTP_TIMEOUT)
+    sa = stream.StreamAnalytics().attach(T2)
+    t0 = time.perf_counter()
+    try:
+        for _, A in stream.stream_blocks(cfg, rec=rec):
+            T2.put(A, sync=False)
+            T2.flush()
+            sa.step()
+        sa.step(force=True)
+        alerts = sa.bank.alerts(limit=10_000)
+        secs = time.perf_counter() - t0
+        n_pkts = sa.rollup.totals("second")["n_packets"]
+    finally:
+        sa.close()
+        T2.close()
+        T2.backend.close()
+    check(n_pkts == rec.shape[0],
+          f"[stream {device}] rollup holds {n_pkts} of {rec.shape[0]} "
+          f"packets")
+    c2, scan, ddos = truth["attacks"]
+    for att in truth["attacks"]:
+        check(any(a.kind == att["kind"] and a.window_start < att["stop"]
+                  and a.window_stop > att["start"] for a in alerts),
+              f"[stream {device}] no {att['kind']} alert in its window")
+    check(any(a.victim == c2["victim"] for a in alerts if a.kind == "c2"),
+          f"[stream {device}] no c2 alert names {c2['victim']}")
+    check(all(scan["attackers"][0] in a.hosts.tolist()
+              for a in alerts if a.kind == "scan"),
+          f"[stream {device}] a scan alert misses {scan['attackers'][0]}")
+    check(all(a.victim == ddos["victim"] for a in alerts
+              if a.kind == "ddos"),
+          f"[stream {device}] a ddos alert misses {ddos['victim']}")
+    kinds = {}
+    for a in alerts:
+        kinds[a.kind] = kinds.get(a.kind, 0) + 1
+    log(f"[stream {device}] {rec.shape[0]} packets in {secs:.2f} s, "
+        f"alerts {kinds}")
+    return json.loads(json.dumps([a.to_dict() for a in alerts])), secs
+
+
+def gateway_path(device: str, ref: dict) -> dict:
+    """Phase 13 on ``device``: phase 3's window (its incidence matrix
+    ``ref["E"]``) into a two-shard net store with the stream attached,
+    served by the gateway; every answer is held against ``ref``, phase
+    3's results and table on the card."""
+    set_device(device)
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    cfg = TrafficConfig(**MAIN_CFG)
+    E, n_packets = ref["E"], ref["n_packets"]
+    check(n_packets == GW_PACKETS and E.nnz == GW_NNZ,
+          f"[gateway {device}] window {n_packets} packets, nnz {E.nnz}")
+    T = DB("Tedge", "TedgeT", "TedgeDeg", backend="net",
+           n_instances=GW_SHARDS, io_timeout=GW_HTTP_TIMEOUT)
+    sa = stream.StreamAnalytics().attach(T)     # before any ingest
+    t0 = time.perf_counter()
+    put(T, E.putval("1,"))
+    T.flush()
+    times = {"ingest": time.perf_counter() - t0}
+    gw = Gateway(T, TokenAuth({
+        GW_TOKEN: Tenant("analyst", rate=1e4, burst=1e4),
+        GW_TIGHT: Tenant("tight", rate=0.5, burst=2.0)}),
+        stream_analytics=sa)
+    default_window = gw.coalescer.window
+    addr = gw.start()
+    lat, dev_ms, out = {}, {}, {}
+    T3 = ref["table"]
+    t0 = time.perf_counter()
+    try:
+        check(get_device().type == device,
+              f"[gateway] serves on {get_device()}, want {device}")
+        # 8 concurrent top-k requests, batched by the coalescer (its
+        # window widened for them, so the batch does not hang on thread
+        # start-up; the latencies below use the default window)
+        gw.coalescer.window = GW_COALESCE_S
+        barrier = threading.Barrier(GW_CONCURRENT)
+        answers = []
+
+        def topk_one():
+            barrier.wait(timeout=GW_HTTP_TIMEOUT)
+            answers.append(http(addr, "/v1/topk?prefix=ip.dst|&k=10"))
+        threads = [threading.Thread(target=topk_one)
+                   for _ in range(GW_CONCURRENT)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=2 * GW_HTTP_TIMEOUT)
+        check(len(answers) == GW_CONCURRENT and
+              all(a[0] == 200 and a[1] == answers[0][1] for a in answers),
+              f"[gateway {device}] concurrent topk answers differ")
+        out["topk"] = answers[0][1]
+        gw.coalescer.window = default_window
+        s, st, _ = http(addr, "/v1/stats")
+        co = st["coalesce"]
+        check(co["max_batch"] >= 2 and co["n_batches"] >= 1,
+              f"[gateway {device}] topk not coalesced: {co}")
+        # degree fit against phase 3's fit_degree_table
+        s, d, _ = http(addr, "/v1/degree?prefix=ip.dst|")
+        n_dst = T3.degree_assoc("ip.dst|").nnz
+        check(s == 200 and d["n"] == n_dst and np.allclose(
+            [d["fit"]["alpha"], d["fit"]["r2"]], ref["fit"],
+            rtol=PATH_RTOL, atol=PATH_ATOL),
+            f"[gateway {device}] degree n {d.get('n')} / {n_dst}, fit "
+            f"{d.get('fit')} vs phase 3 {ref['fit']}")
+        out["degree"] = d
+        # C2 in the top 3, as in phase 3
+        c2 = botnet_truth(cfg)["c2"]
+        s, d, _ = http(addr, "/v1/c2?top_k=3")
+        check(s == 200 and c2 in d["report"]["hosts"] and
+              d["report"]["hosts"] == ref["c2"][:3],
+              f"[gateway {device}] c2 top 3 {d['report']['hosts']}, "
+              f"phase 3 {ref['c2'][:3]}, injected {c2}")
+        out["c2"] = d
+        # scanners and one column scan against phase 3's memory table
+        s, d, _ = http(addr, "/v1/scanners")
+        want = analytics.scan_report(T3).hosts.tolist()
+        check(s == 200 and d["report"]["hosts"] == want,
+              f"[gateway {device}] scanners {d['report']['hosts']} vs {want}")
+        out["scanners"] = d
+        scan_path = f"/v1/scan?axis=col&prefix=ip.dst|{c2}"
+        s, d, _ = http(addr, scan_path)
+        r, c, v = T3[:, StartsWith(f"ip.dst|{c2}")].eval().triples()
+        want = [[str(a), str(b), str(x)] for a, b, x in zip(r, c, v)]
+        check(s == 200 and d["nnz"] == len(want) and
+              d["triples"] == want[:len(d["triples"])],
+              f"[gateway {device}] scan of {c2}: nnz {d['nnz']} vs "
+              f"{len(want)}")
+        out["scan"] = d
+        # the PageRank job against phase 3's pagerank_table
+        pr_params = {"num_iters": 30, "top_k": 5}
+        res = run_job(addr, "pagerank", pr_params)
+        top = np.argsort(ref["pr"])[::-1][:5]
+        check([n["key"] for n in res["nodes"]] ==
+              [str(ref["hosts"][i]) for i in top] and np.allclose(
+                  [n["rank"] for n in res["nodes"]], ref["pr"][top],
+                  rtol=PATH_RTOL, atol=PATH_ATOL),
+              f"[gateway {device}] pagerank top 5 {res['nodes']}")
+        out["pagerank"] = res
+        times["requests"] = time.perf_counter() - t0
+        # rollup conservation over the closed windows
+        t0 = time.perf_counter()
+        sa.step(force=True)
+        times["close_windows"] = time.perf_counter() - t0
+        for level in ("second", "minute"):
+            s, d, _ = http(addr, f"/v1/windows?level={level}&limit=10000")
+            got = sum(w["n_packets"] for w in d["windows"])
+            check(s == 200 and got == n_packets,
+                  f"[gateway {device}] {level} windows hold {got} of "
+                  f"{n_packets} packets")
+            out[f"windows_{level}"] = d
+        s, st, _ = http(addr, "/v1/stats")
+        check(st["table"]["writers"]["n_taps"] == 1,
+              f"[gateway {device}] n_taps {st['table']['writers']}")
+        check(st["kernel_launches"] == X.launch_counts(),
+              f"[gateway {device}] stats kernel_launches "
+              f"{st['kernel_launches']} vs {X.launch_counts()}")
+        # the error surface
+        s, d, _ = http(addr, "/v1/topk", token=None)
+        check(s == 401, f"[gateway {device}] no token gave {s}")
+        codes = [http(addr, "/v1/topk?k=1", token=GW_TIGHT)
+                 for _ in range(3)]
+        check([c[0] for c in codes] == [200, 200, 429] and
+              float(codes[2][2]["Retry-After"]) > 0,
+              f"[gateway {device}] past burst: {[c[0] for c in codes]}")
+        # the work ran on the card: device allocations and device time of
+        # one /v1/c2 request and one PageRank job
+        t0 = time.perf_counter()
+        if on_card:
+            for name, fn in (
+                    ("c2", lambda: http(addr, "/v1/c2?top_k=3")),
+                    ("pagerank", lambda: run_job(addr, "pagerank",
+                                                 pr_params))):
+                allocs = device_allocations(fn)
+                prof = profiled_device_ms(fn)
+                check(allocs > 0 and prof["device_ms"] > 0,
+                      f"[gateway] {name}: {allocs} device allocations, "
+                      f"profiled {prof}")
+                dev_ms[name] = dict(prof, allocations=allocs)
+        times["profile"] = time.perf_counter() - t0
+        # median latency per endpoint, 5 requests after one warm-up
+        t0 = time.perf_counter()
+        for name, path in GW_ENDPOINTS + (("scan", scan_path),):
+            lat[name] = median_ms(lambda: http(addr, path))
+        lat["pagerank_job"] = median_ms(
+            lambda: run_job(addr, "pagerank", pr_params))
+        times["latency"] = time.perf_counter() - t0
+    finally:
+        gw.stop()
+        T.close()
+        T.backend.close()
+    out["stream_alerts"], times["stream"] = stream_scenario(device)
+    total = time.perf_counter() - t_phase
+    ingest_s = times["ingest"]
+    log(f"[gateway {device}] ingest into the net store {ingest_s:.3f} s "
+        f"({GW_PACKETS} packets, {GW_NNZ} nnz, {GW_SHARDS} shards); "
+        f"phase {total:.2f} s: " + json.dumps(
+            {k: round(v, 3) for k, v in times.items()}))
+    log(f"[gateway {device}] median ms: " + json.dumps(
+        {k: round(v, 3) for k, v in lat.items()}))
+    if dev_ms:
+        log(f"[gateway {device}] profiled: " + json.dumps(dev_ms))
+    return dict(out=out, ingest_s=ingest_s, total_s=total, latency_ms=lat,
+                device=dev_ms, coalesce=co, times=times)
+
+
+def compare_gateways(card: dict, cpu: dict) -> None:
+    """Card and CPU answers of phase 13 equal: keys and integer counts
+    exactly, floats within PATH_RTOL / PATH_ATOL."""
+    same_json(card["out"], cpu["out"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1458,6 +1845,23 @@ def main() -> int:
     t0 = time.perf_counter()
     piped = pipeline_path(dev)
     log(f"[pipeline] phases 11-12 in {time.perf_counter() - t0:.1f} s")
+
+    ops.reset_launches()
+    gw_card = gateway_path("cuda", card)
+    gw_launches = ops.kernel_launches()
+    check(not any(gw_launches.values()),
+          f"[gateway] the gateway path launched kernels: {gw_launches}")
+    gw_cpu = gateway_path("cpu", card)
+    set_device("cuda")
+    compare_gateways(gw_card, gw_cpu)
+    for paths in (card, cpu):
+        del paths["table"], paths["E"]
+    log("[gateway] " + json.dumps({"gateway": {
+        dev: {k: r[k] for k in ("ingest_s", "total_s", "times",
+                                "latency_ms", "device", "coalesce")}
+        for dev, r in (("cuda", gw_card), ("cpu", gw_cpu))},
+        "kernel_launches": gw_launches}))
+    log("[compare] card and CPU gateway answers agree")
 
     served = serve_path(dev)
     rglru = rglru_at_shapes(dev)

@@ -927,11 +927,14 @@ def DB(*tables: str, backend: Union[Backend, str, None] = None,
     ``backend`` selects the storage engine: an existing store object, or
     a registered name — ``"memory"`` (the default: a fresh
     :class:`MultiInstanceDB`, or single :class:`EdgeStore` when
-    ``n_instances == 1``), or ``"lsm"`` (the persistent
+    ``n_instances == 1``), ``"lsm"`` (the persistent
     :class:`~repro_torch.db.lsmstore.LSMStore`, which requires ``path=``
     and shards instances across ``path/db*`` subdirectories when
-    ``n_instances > 1``).  ``"net"`` is registered but not ported yet and
-    raises ``NotImplementedError``.  Extra ``backend_options`` (e.g.
+    ``n_instances > 1``), or ``"net"`` (networked shard servers —
+    :class:`~repro_torch.db.netstore.NetMultiInstanceDB`; pass
+    ``addresses=["host:port", ...]`` for running servers, or let it
+    auto-start ``n_instances`` local shards).  Extra ``backend_options``
+    (e.g.
     ``memtable_limit``, ``coordination_cost_s``) pass to the engine
     factory; see ``repro_torch.db.registry``.  ``cache_ttl`` tunes the scan
     cache (default ``DEFAULT_SCAN_TTL``; ``0`` opts this view out of

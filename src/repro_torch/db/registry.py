@@ -3,9 +3,8 @@
 Every caller goes through one binding, and this registry names the
 engine behind it: ``DB(..., backend="memory")`` and ``DB(...,
 backend="lsm", path=...)`` bind the same query surface to the in-process
-and the persistent store.  ``"net"`` is registered so the name stays
-reserved, and raises ``NotImplementedError`` until that engine is
-ported.
+and the persistent store, and ``DB(..., backend="net",
+addresses=[...])`` binds it to networked shard servers.
 Anything implementing the :class:`~repro_torch.db.edgestore.EdgeStore` scan
 protocol (``scan_keys`` / ``scan_key_range`` / ``scan_prefix`` /
 ``scan_everything`` / ``degree`` / ``degree_items`` / ``put_triples`` /
@@ -58,6 +57,18 @@ def _memory(*, n_instances: int, tablets_per_instance: int,
                            **options)
 
 
+def _net(*, n_instances: int, tablets_per_instance: int,
+         path: Optional[str] = None, **options):
+    """The networked shard engine: ``addresses=["host:port", ...]``
+    connects to running ``repro_torch.db.netstore`` shard servers;
+    without it ``n_instances`` local servers are auto-started (LSM-backed
+    under ``path`` when given).  See :mod:`repro_torch.db.netstore`."""
+    from .netstore import NetMultiInstanceDB
+    return NetMultiInstanceDB(n_instances=n_instances, path=path,
+                              tablets_per_instance=tablets_per_instance,
+                              **options)
+
+
 def _lsm(*, n_instances: int, tablets_per_instance: int,
          path: Optional[str] = None, **options):
     """The persistent LSM engine: WAL + memtable + sorted runs under
@@ -73,14 +84,6 @@ def _lsm(*, n_instances: int, tablets_per_instance: int,
     return LSMMultiInstanceDB(path, n_instances=n_instances, **options)
 
 
-def _not_ported(name: str) -> Callable:
-    def factory(**options):
-        raise NotImplementedError(
-            f"backend={name!r} is not ported to repro_torch yet; it is "
-            f"queued as a later db slice. Use backend='memory' or 'lsm'.")
-    return factory
-
-
 register_backend("memory", _memory)
 register_backend("lsm", _lsm)
-register_backend("net", _not_ported("net"))
+register_backend("net", _net)

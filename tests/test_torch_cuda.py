@@ -726,3 +726,38 @@ def test_spgemm_sel_rejects_bad_inputs(card):
     with pytest.raises(ValueError):
         spgemm_sel(ec, ev, sel.cpu())
     assert ops.kernel_launches()["spgemm_sel"] == before
+
+
+def test_gateway_c2_on_card(card):
+    """The gateway over the net backend on the card: ``/v1/c2`` holds the
+    injected C2 in its top 3, and the scoring ran on ``cuda``."""
+    import json
+    import urllib.request
+
+    from repro_torch.core import parse_tsv, val2col
+    from repro_torch.device import get_device
+    from repro_torch.pipeline import TrafficConfig, botnet_truth, \
+        records_to_tsv, synth_packets
+    from repro_torch.serve import Gateway, Tenant, TokenAuth
+
+    cfg = TrafficConfig(n_hosts=64, pkt_rate=300.0, n_bots=8,
+                        beacon_period_s=4.0, seed=1)
+    E = val2col(parse_tsv(records_to_tsv(synth_packets(cfg, 30.0))))
+    T = DB("Tedge", "TedgeT", "TedgeDeg", backend="net", n_instances=2,
+           io_timeout=30.0)
+    gw = Gateway(T, TokenAuth({"tok": Tenant("t", rate=100.0,
+                                             burst=100.0)}))
+    try:
+        put(T, E.putval("1,"))
+        addr = gw.start()
+        assert get_device().type == "cuda"
+        r = urllib.request.Request(f"http://{addr}/v1/c2?top_k=3",
+                                   headers={"Authorization": "Bearer tok"})
+        with urllib.request.urlopen(r, timeout=60) as resp:
+            report = json.loads(resp.read())["report"]
+        assert botnet_truth(cfg)["c2"] in report["hosts"]
+        assert all(np.isfinite(report["scores"]))
+    finally:
+        gw.stop()
+        T.close()
+        T.backend.close()

@@ -108,6 +108,74 @@ def test_pipeline_modules_import_with_jax_and_reference_blocked(module):
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.analytics.dimensional", "repro_torch.db.netstore",
+    "repro_torch.stream", "repro_torch.stream.windows",
+    "repro_torch.stream.detectors", "repro_torch.stream.synth",
+    "repro_torch.serve", "repro_torch.serve.app", "repro_torch.serve.auth",
+    "repro_torch.serve.coalesce", "repro_torch.serve.jobs",
+    "repro_torch.serve.ratelimit", "repro_torch.serve.routes",
+    "repro_torch.serve.stream", "repro_torch.serve.__main__"])
+def test_gateway_modules_import_with_jax_and_reference_blocked(module):
+    """The gateway slice's modules import on their own with jax and the
+    JAX package made unimportable, pull in neither, and build nothing."""
+    script = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        import importlib
+        importlib.import_module({module!r})
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        from repro_torch.kernels import ops
+        assert not ops._LIBS
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_DEVICE="cpu")
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_gateway_cli_serves_with_jax_and_reference_blocked(tmp_path):
+    """``python -m repro_torch.serve --backend net --stream`` on the CPU,
+    with jax and the JAX package unimportable: it prints ``LISTENING``,
+    answers a request, and stops on SIGTERM."""
+    import signal
+    import threading
+    import urllib.request
+    boot = tmp_path / "boot.py"
+    boot.write_text(textwrap.dedent("""
+        import runpy, sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        sys.argv = ["repro_torch.serve"] + sys.argv[1:]
+        runpy.run_module("repro_torch.serve", run_name="__main__")
+    """))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_DEVICE="cpu")
+    proc = subprocess.Popen(
+        [sys.executable, str(boot), "--backend", "net", "--n-instances",
+         "2", "--token", "smoke:ci:100:200", "--demo-rows", "2000",
+         "--stream"], env=env, stdout=subprocess.PIPE, text=True)
+    try:
+        line = []
+        t = threading.Thread(target=lambda: line.append(
+            proc.stdout.readline()), daemon=True)
+        t.start()
+        t.join(timeout=90)
+        assert line and line[0].startswith("LISTENING "), line
+        r = urllib.request.Request(
+            f"http://{line[0].split()[1]}/v1/topk?prefix=ip.dst|&k=3",
+            headers={"Authorization": "Bearer smoke"})
+        with urllib.request.urlopen(r, timeout=20) as resp:
+            body = resp.read().decode()
+        assert '"hosts"' in body and '"ip.dst|' in body
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+
+
 def test_chip_smoke_refuses_without_card():
     """No result and a non-zero exit where no CUDA device is visible."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")

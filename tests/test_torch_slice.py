@@ -161,10 +161,20 @@ class TestSlice:
         close(ppr, jppr)
 
     def test_backends_not_ported_raise(self):
-        """``"net"`` is still unported; ``"lsm"`` is ported and, like
-        the reference, refuses to open without a directory."""
-        with pytest.raises(NotImplementedError, match="net"):
-            DB("Tedge", backend="net")
+        """``"net"`` is ported: it opens on the CPU with its own local
+        shard servers and closes them again.  ``"lsm"``, like the
+        reference, still refuses to open without a directory."""
+        from repro_torch.db import NetMultiInstanceDB
+        T = DB("Tedge", "TedgeT", "TedgeDeg", backend="net", n_instances=2)
+        try:
+            assert isinstance(T.backend, NetMultiInstanceDB)
+            assert len(T.backend.servers) == 2
+            assert all(i.ping() for i in T.backend.instances)
+        finally:
+            T.close()
+            T.backend.close()
+        with pytest.raises(ConnectionError):
+            T.backend.instances[0].ping()
         with pytest.raises(ValueError, match="requires path"):
             DB("Tedge", backend="lsm")
 
