@@ -104,9 +104,10 @@ Phases, each of which must pass (any failure raises, exit code != 0):
     plain version and library yardstick (``index_add_`` on ids with the
     padding masked out beforehand; ``torch.sparse.mm`` of the CSR matrix
     and the dense one-hot selection) and the bytes bound; for the segsums
-    also their device time from ``torch.profiler`` (by kernel) and the
-    wrapper's host time a call, beside the event time of back-to-back
-    calls.
+    also their device time from ``torch.profiler`` (by kernel; the
+    largest of up to 8 profiled runs, as the profiler drops records at
+    random late in a process, see phase 13) and the wrapper's host time
+    a call, beside the event time of back-to-back calls.
 11. The paper's pipeline on the card (after phase 4): ``run_pipeline``
     of ``repro_torch.pipeline`` over 4 capture files of 15 s of the
     main-path traffic (about 120,000 packets, 1 MiB splits, 4 workers)
@@ -160,6 +161,37 @@ Phases, each of which must pass (any failure raises, exit code != 0):
     none may run.  Logs each endpoint's median latency over 5 requests
     after one warm-up, the ingest seconds and the phase's seconds.
 
+14. Training and the mesh on the card (after phase 9): (a) rwkv6-1.6b at
+    full width and depth (1.584 B parameters, bf16 compute, float32
+    master weights, remat per layer) trained through the calls of
+    ``repro_torch.launch.train.main`` in its order: ``synth_corpus`` (the
+    port's pipeline, on the card), ``TokenStream`` B = 8, S = 512,
+    seeded ``init_train_state``, ``make_train_step`` with
+    ``OptConfig(warmup_steps=2)``, 12 steps, the last one's gradient and
+    AdamW update apart (as the step composes them).  Every loss and
+    gradient norm finite, the mean of the last 3 losses below the first,
+    no hand-written kernel launched (counts zeroed just before, read
+    just after).  Logs each step's seconds (CUDA events), the median
+    after the first, tokens/s, the AdamW update's share of its step,
+    peak device memory and one more step's device time under
+    ``torch.profiler``, the device alone traced (a lower bound, see
+    phase 13).  (b) Two smoke
+    train steps of rwkv6 on the card and on the CPU from the same seeded
+    parameters and batches: float32 losses and gradient norms within
+    rtol=1e-5, bfloat16 within rtol=1e-2; every parameter within 2 lr a
+    step of the CPU's (Adam moves each entry by about lr, and a tiny
+    gradient of another sign by 2 lr apart), and 99.9% (float32) within
+    2e-6 or 99% (bfloat16) within 1e-4.  (c) The bfloat16 run's state
+    with a sampler state through ``repro_torch.checkpoint``: restored
+    onto the card and onto the CPU bit for bit.  (d) A one-rank NCCL
+    world (``FileStore`` under a temporary directory, destroyed at the
+    end): ``pagerank_table`` of phase 3's table over a (1,) ``data``
+    mesh equal to phase 3's (keys exact, ranks rtol=1e-5, atol=1e-7),
+    ``degree_sharded`` exact, and ``compressed_pod_mean`` over a (1,)
+    ``pod`` axis of (a)'s last gradients within scale/2 of them on every
+    leaf (plus the float32 rounding of the dequantized value, under
+    1e-5 scale).
+
 Prints each kernel's registers and shared memory (``cudaFuncGetAttributes``
 through each library's ``<lib>_attrs``), the card's name and power limit,
 a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -212,6 +244,16 @@ from repro_torch.pipeline import (PipelineConfig,  # noqa: E402
                                   records_to_tsv, run_pipeline,
                                   synth_packets)
 from repro_torch.serve import Gateway, Tenant, TokenAuth  # noqa: E402
+from repro_torch import checkpoint  # noqa: E402
+from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.core import graph  # noqa: E402
+from repro_torch.data import SamplerState, TokenStream  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.train import synth_corpus  # noqa: E402
+from repro_torch.train import (OptConfig, adamw_update,  # noqa: E402
+                               compressed_pod_mean, init_train_state)
+from repro_torch.train.trainer import make_grad_fn, make_train_step  # noqa: E402,E501
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
@@ -284,6 +326,19 @@ GW_ENDPOINTS = (("topk", "/v1/topk?prefix=ip.dst|&k=10"),
                 ("scanners", "/v1/scanners"),
                 ("windows", "/v1/windows?level=second&limit=10000"),
                 ("stats", "/v1/stats"))
+
+
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "rwkv6-1.6b", 8, 512, 12
+TRAIN_WARMUP = 2
+# card against CPU at the smoke size: losses and gradient norms
+TRAIN_F32_RTOL, TRAIN_BF16_RTOL = 1e-5, 1e-2
+TRAIN_SMOKE_B, TRAIN_SMOKE_S, TRAIN_SMOKE_LR = 4, 128, 1e-3
+# parameters after the 2 steps: every entry within 2 lr a step (Adam maps
+# each gradient to about +-lr, so a tiny gradient of another sign on
+# the two devices moves its entry 2 lr apart), and this share of all
+# entries within the near limit (float32: gradients equal to ~1e-6, so
+# updates equal to ~1e-6 lr; bfloat16: to ~1e-2, so ~1e-2 lr)
+TRAIN_PARAM_NEAR = {"float32": (2e-6, 0.999), "bfloat16": (1e-4, 0.99)}
 
 
 class SmokeFailure(RuntimeError):
@@ -520,7 +575,18 @@ def measure_segsum(name: str, ids, vals, n_seg: int) -> dict:
         out["bit_identical"] = True
     del got, want, exact, used
     out["ms"] = timed_ms(lambda: fn(ids, vals, n_seg))
-    split, _ = profiled_kernels(lambda: fn(ids, vals, n_seg), iters=5)
+    # the profiler drops a run's device records at random once the
+    # process has run a while: as in phase 13, up to GW_PROFILE_CALLS
+    # profiled runs, the largest total kept, stopping after
+    # GW_PROFILE_HITS runs that showed any
+    split, hits = {}, 0
+    for _ in range(GW_PROFILE_CALLS):
+        run, _ = profiled_kernels(lambda: fn(ids, vals, n_seg), iters=5)
+        hits += bool(run)
+        if sum(run.values()) > sum(split.values()):
+            split = run
+        if hits >= GW_PROFILE_HITS:
+            break
     check(bool(split), f"{name}: the profiler saw no device work")
     out["device_ms"] = sum(split.values())
     out["device_split_ms"] = {k[:48]: v for k, v in split.items()}
@@ -1047,14 +1113,17 @@ def serve_prompts() -> list:
     return prompts
 
 
-def profiled_kernels(fn, iters: int = 1) -> tuple[dict, int]:
+def profiled_kernels(fn, iters: int = 1,
+                     cpu: bool = True) -> tuple[dict, int]:
     """``iters`` calls of ``fn`` under ``torch.profiler``: the device time
     a call of each CUDA kernel (and memset) it ran, by name, in ms (one
-    stream, so the times add up), and the number of kernels run."""
+    stream, so the times add up), and the number of kernels run.
+    ``cpu=False`` traces the device alone, which costs far less for a
+    call of tens of thousands of kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = ([ProfilerActivity.CPU] if cpu else []) + [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -1797,6 +1866,249 @@ def compare_gateways(card: dict, cpu: dict) -> None:
     same_json(card["out"], cpu["out"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: training and the mesh on the card.
+# ---------------------------------------------------------------------------
+
+def token_batch(stream: TokenStream, vocab: int, dev) -> dict:
+    return {k: torch.from_numpy(np.minimum(v, vocab - 1)).to(dev)
+            for k, v in stream.next_batch().items()}
+
+
+def train_full_width(dev: torch.device, pattern: str) -> dict:
+    """rwkv6-1.6b at full width and depth through the calls of
+    ``launch.train.main`` in its order (the last step's gradient and
+    update apart, as ``make_train_step`` composes them, to time the
+    update and keep its gradients)."""
+    cfg = get_config(TRAIN_ARCH)
+    stream = TokenStream(pattern, seq_len=TRAIN_S, batch=TRAIN_B)
+    opt = OptConfig(warmup_steps=TRAIN_WARMUP)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state = init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    train_step = make_train_step(cfg, opt)
+    grad_fn = make_grad_fn(cfg, opt)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    losses, norms, step_s = [], [], []
+    ops.reset_launches()
+    for step in range(TRAIN_STEPS):
+        batch = token_batch(stream, cfg.vocab, dev)
+        ev[0].record()
+        if step < TRAIN_STEPS - 1:
+            params, state, m = train_step(params, state, batch)
+            loss, gnorm = m["loss"], m["grad_norm"]
+        else:
+            loss, grads = grad_fn(params, batch)
+            ev[1].record()
+            params, state, gnorm = adamw_update(params, grads, state, opt)
+        ev[2].record()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        norms.append(float(gnorm))
+        step_s.append(ev[0].elapsed_time(ev[2]) / 1e3)
+    adamw_ms = ev[1].elapsed_time(ev[2])
+    launches = ops.kernel_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"[train] non-finite loss or gradient norm: {losses} {norms}")
+    check(np.mean(losses[-3:]) < losses[0],
+          f"[train] loss did not fall: {losses}")
+    check(not any(launches.values()),
+          f"[train] hand-written kernels launched in training: {launches}")
+    check(all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads)),
+          "[train] non-finite gradients in the last step")
+    batch = token_batch(stream, cfg.vocab, dev)
+    t0 = time.perf_counter()
+    split, n_kernels = profiled_kernels(
+        lambda: train_step(params, state, batch), cpu=False)
+    profiled_s = time.perf_counter() - t0
+    median_s = float(np.median(step_s[1:]))
+    out = {"arch": cfg.name, "params_b": n_params / 1e9, "batch": TRAIN_B,
+           "seq": TRAIN_S, "dtype": cfg.dtype, "remat": cfg.remat,
+           "init_s": init_s, "losses": losses, "grad_norms": norms,
+           "step_s": step_s, "median_step_s": median_s,
+           "tokens_per_s": TRAIN_B * TRAIN_S / median_s,
+           "adamw_ms": adamw_ms,
+           "adamw_share": adamw_ms / 1e3 / step_s[-1],
+           "peak_gb": peak_gb, "kernel_launches": launches,
+           "profiled_step": {"device_ms": sum(split.values()) if n_kernels
+                             else None, "device_kernels": n_kernels,
+                             "wall_s": profiled_s,
+                             "busy_share": sum(split.values()) / 1e3 /
+                             median_s if n_kernels else None,
+                             "top_kernels_ms": sorted(
+                                 split.items(), key=lambda kv: -kv[1])[:6]}}
+    log(f"[train] {cfg.name} {n_params / 1e9:.3f} B params, B={TRAIN_B} "
+        f"S={TRAIN_S} {cfg.dtype} remat={cfg.remat}: losses "
+        f"{[round(x, 4) for x in losses]}, median step {median_s:.4f} s "
+        f"({out['tokens_per_s']:.0f} tokens/s), AdamW {adamw_ms:.2f} ms "
+        f"({100 * out['adamw_share']:.1f}% of its step), peak "
+        f"{peak_gb:.2f} GB, profiled step {out['profiled_step']}")
+    del params, state
+    return out, grads
+
+
+def train_smoke_runs(dev: torch.device, pattern: str, dtype: str) -> dict:
+    """Two smoke train steps of rwkv6 on the card and on the CPU from the
+    same seeded parameters and batches; the card's state is returned for
+    the checkpoint round trip."""
+    cfg = dataclasses.replace(smoke_config(TRAIN_ARCH), dtype=dtype)
+    opt = OptConfig(lr=TRAIN_SMOKE_LR, warmup_steps=1)
+    stream = TokenStream(pattern, seq_len=TRAIN_SMOKE_S, batch=TRAIN_SMOKE_B)
+    batches = [stream.next_batch() for _ in range(2)]
+    runs = {}
+    for where in ("cuda", "cpu"):
+        set_device(where)
+        params, state = init_train_state(cfg, torch.Generator()
+                                         .manual_seed(0))
+        params, state = tree_map(lambda t: t.to(where), (params, state))
+        step = make_train_step(cfg, opt)
+        metrics = []
+        for b in batches:
+            b = {k: torch.from_numpy(np.minimum(v, cfg.vocab - 1)).to(where)
+                 for k, v in b.items()}
+            params, state, m = step(params, state, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[where] = dict(params=params, state=state, metrics=metrics)
+    set_device("cuda")
+    rtol = TRAIN_F32_RTOL if dtype == "float32" else TRAIN_BF16_RTOL
+    got, want = np.asarray(runs["cuda"]["metrics"]), \
+        np.asarray(runs["cpu"]["metrics"])
+    check(np.allclose(got, want, rtol=rtol, atol=0),
+          f"[train] {dtype} card {got.tolist()} vs CPU {want.tolist()} "
+          f"beyond rtol={rtol}")
+    diff = torch.cat([(a.cpu() - b).abs().flatten() for a, b in zip(
+        tree_leaves(runs["cuda"]["params"]),
+        tree_leaves(runs["cpu"]["params"]))])
+    near, share = TRAIN_PARAM_NEAR[dtype]
+    got_share = float((diff <= near).float().mean())
+    check(float(diff.max()) <= 2 * TRAIN_SMOKE_LR * 2 and got_share >= share,
+          f"[train] {dtype} parameters: max diff {float(diff.max())}, "
+          f"{got_share:.5f} within {near} (want {share})")
+    runs["check"] = {"metrics_card": got.tolist(),
+                     "metrics_cpu": want.tolist(),
+                     "param_max_diff": float(diff.max()),
+                     "param_share_near": got_share}
+    log(f"[train] card vs CPU, smoke {dtype}: " + json.dumps(runs["check"]))
+    return runs
+
+
+def same_bits(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.detach().cpu().reshape(-1).view(torch.uint8),
+            b.detach().cpu().reshape(-1).view(torch.uint8))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def checkpoint_round_trip(run: dict, pattern: str, root: str) -> None:
+    """Save the card's smoke state with a sampler state; restore onto the
+    card and onto the CPU, bit for bit."""
+    stream = TokenStream(pattern, seq_len=TRAIN_SMOKE_S, batch=TRAIN_SMOKE_B)
+    stream.next_batch()
+    stream.next_batch()
+    tree = (run["params"], run["state"], stream.state.to_dict())
+    checkpoint.save(root, 1, tree, {"step": 1})
+    for where in ("cuda", "cpu"):
+        like = (tree_map(lambda t: t.to(where), (run["params"],
+                                                 run["state"]))
+                + (SamplerState().to_dict(),))
+        (p, s, sampler), meta = checkpoint.restore(root, like)
+        check(meta == {"step": 1}, f"[train] checkpoint metadata {meta}")
+        leaves = tree_leaves((p, s))
+        check(all(t.device.type == where for t in leaves),
+              f"[train] restored leaves not all on {where}")
+        check(all(same_bits(a, b) for a, b in zip(
+            leaves, tree_leaves((run["params"], run["state"])))),
+              f"[train] checkpoint restored onto {where} is not bit-exact")
+        check(SamplerState.from_dict({k: int(v) for k, v in sampler.items()})
+              == stream.state, f"[train] sampler state {sampler}")
+    log("[train] checkpoint round trip bit-exact onto card and CPU")
+
+
+def nccl_one_rank(ref: dict, grads, tmp: str) -> dict:
+    """A one-rank NCCL world: the sharded PageRank and degrees over a
+    (1,) data mesh, and the int8 pod mean, through NCCL's all_reduce."""
+    import torch.distributed as dist
+    store = dist.FileStore(os.path.join(tmp, "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",))
+        check(mesh.group("data") is not None, "[mesh] no NCCL group")
+        hosts, pr = analytics.distributed.pagerank_table(ref["table"], mesh,
+                                                         30)
+        pr = pr.cpu().numpy()
+        check(np.array_equal(hosts, ref["hosts"]) and np.allclose(
+            pr, ref["pr"], rtol=PATH_RTOL, atol=PATH_ATOL),
+            f"[mesh] pagerank_table over NCCL differs from phase 3: max "
+            f"abs {np.abs(pr - ref['pr']).max()}")
+        T = ref["table"]
+        E = T[:, "ip.src|*,"] + T[:, "ip.dst|*,"]
+        coo = graph.square(graph.adjacency(E)).device_coo(torch.float32)
+        deg = analytics.distributed.degree_sharded(coo, mesh)
+        live = coo.cols[coo.rows < coo.shape[0]].long().cpu()
+        check(torch.equal(deg, analytics.distributed.degree_sharded(coo)) and
+              torch.equal(deg.cpu(), torch.bincount(
+                  live, minlength=coo.shape[1]).float()),
+              "[mesh] degree_sharded over NCCL is not exact")
+        pod = make_mesh((1,), ("pod",))
+        q = compressed_pod_mean(grads, pod)
+        worst = 0.0
+        for g, h in zip(tree_leaves(grads), tree_leaves(q)):
+            scale = float(g.abs().max()) / 127
+            err = float((h - g).abs().max())
+            # scale/2, plus the float32 rounding of the dequantized value
+            # (at most 127 scale 2^-24 < 1e-5 scale)
+            check(err <= scale * (0.5 + 1e-5),
+                  f"[mesh] int8 pod mean error {err} > scale/2 {scale / 2}")
+            worst = max(worst, err / max(scale, 1e-30))
+    finally:
+        dist.destroy_process_group()
+    out = {"pagerank_nodes": int(hosts.shape[0]),
+           "pagerank_max_abs_vs_phase3": float(np.abs(pr - ref["pr"]).max()),
+           "degree_nnz": int(coo.nnz),
+           "pod_mean_worst_err_over_scale": worst}
+    log("[mesh] one-rank NCCL world: " + json.dumps(out))
+    return out
+
+
+def train_path(dev: torch.device, ref: dict) -> dict:
+    """Phase 14 on the card; ``ref`` is phase 3's result (its table)."""
+    t_phase = time.perf_counter()
+    times = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t0 = time.perf_counter()
+        pattern = synth_corpus(os.path.join(tmp, "data"))
+        times["corpus"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        full, grads = train_full_width(dev, pattern)
+        times["full_width"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        smoke = {d: train_smoke_runs(dev, pattern, d)
+                 for d in ("float32", "bfloat16")}
+        times["card_vs_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checkpoint_round_trip(smoke["bfloat16"]["cuda"], pattern,
+                              os.path.join(tmp, "ckpt"))
+        times["checkpoint"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh = nccl_one_rank(ref, grads, tmp)
+        times["nccl"] = time.perf_counter() - t0
+    del grads
+    times["phase"] = time.perf_counter() - t_phase
+    log("[train] phase 14 seconds: " + json.dumps(
+        {k: round(v, 2) for k, v in times.items()}))
+    return {"full_width": full, "smoke": {d: r["check"]
+                                          for d, r in smoke.items()},
+            "mesh": mesh, "times": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1854,8 +2166,7 @@ def main() -> int:
     gw_cpu = gateway_path("cpu", card)
     set_device("cuda")
     compare_gateways(gw_card, gw_cpu)
-    for paths in (card, cpu):
-        del paths["table"], paths["E"]
+    del cpu["table"], cpu["E"], card["E"]     # phase 14 reads card's table
     log("[gateway] " + json.dumps({"gateway": {
         dev: {k: r[k] for k in ("ingest_s", "total_s", "times",
                                 "latency_ms", "device", "coalesce")}
@@ -1871,6 +2182,12 @@ def main() -> int:
     log(f"[rg-serve] device memory before: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     rg = rg_serve_path(dev)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] device memory before: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    trained = train_path(dev, card)
 
     for a in ops.kernel_attributes():
         log(f"[attrs] {a['kernel']}: {a['registers']} registers, "
@@ -2005,6 +2322,7 @@ def main() -> int:
         "pipeline": {"stages": piped["stats"]["stages"],
                      "db_entries": piped["stats"]["db_entries"],
                      "seconds": piped["times"], "c2_ranks": piped["ranks"]}}))
+    log("[train] " + json.dumps({"train": trained}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -57,8 +57,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Attention of q over k, v with query i seeing key j where
     ``j <= i`` (``causal``) and ``i - j < window`` (``window`` > 0).
-    Returns (B, Sq, H, Dh) in q's dtype."""
+    Returns (B, Sq, H, Dh) in q's dtype.  Forward-only: raises where an
+    input requires grad in grad mode (:func:`ops.forward_only`)."""
     check_flash_attention(q, k, v)
+    ops.forward_only("flash_attention", q, k, v)
     if not ops.on_cuda(q, k, v):
         return flash_attention_ref(q, k, v, causal, window)
     b, sq, h, dh = q.shape

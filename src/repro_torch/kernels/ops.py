@@ -91,6 +91,22 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
                      f"device, got {sorted(kinds)}")
 
 
+def forward_only(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would need a gradient through ``kernel``.
+
+    The kernels are forward-only, as the JAX package's Pallas calls have
+    no VJP: on the card the output would carry no autograd history and
+    the inputs would silently get no gradient.  So a call with grad mode
+    on and an input that requires grad raises, on every device alike;
+    training runs the model's plain lowerings (``attention_impl``
+    "chunked", ``rwkv_impl`` "chunked", ``rglru_impl`` "scan")."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: its inputs require grad with grad "
+            f"mode on; train through the model's plain lowering, or call "
+            f"it under torch.no_grad()")
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     path = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")

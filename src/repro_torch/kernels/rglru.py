@@ -33,8 +33,10 @@ def check_rglru(a: torch.Tensor, b: torch.Tensor) -> None:
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b: (B, S, C) float32, a the per-step decay.  Returns the
-    states h (B, S, C) float32."""
+    states h (B, S, C) float32.  Forward-only: raises where an input
+    requires grad in grad mode (:func:`ops.forward_only`)."""
     check_rglru(a, b)
+    ops.forward_only("rglru_scan", a, b)
     if not ops.on_cuda(a, b):
         return rglru_scan_ref(a, b)
     bsz, s, c = a.shape

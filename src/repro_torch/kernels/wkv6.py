@@ -52,8 +52,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     steps, with no guard: it holds float32 for w ≥ 0.004 (the model clips
     w at exp(-e^0.5) ≈ 0.1924, where the factors stay within 3e11).  That
     domain is wider than the Pallas kernel's, whose default chunk of 32
-    overflows sooner (8.2e22 at the clip floor)."""
+    overflows sooner (8.2e22 at the clip floor).
+
+    Forward-only: raises where an input requires grad in grad mode
+    (:func:`ops.forward_only`)."""
     check_wkv6(r, k, v, w, u)
+    ops.forward_only("wkv6", r, k, v, w, u)
     if not ops.on_cuda(r, k, v, w, u):
         return wkv6_ref(r, k, v, w, u)
     b, s, h, dh = r.shape

@@ -473,24 +473,26 @@ def apply_rwkv(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig):
     k = (xk @ _c(p["wk"], cfg)).reshape(B, S, H, Dh)
     v = (xv @ _c(p["wv"], cfg)).reshape(B, S, H, Dh)
     g = xg @ _c(p["wgate"], cfg)
-    # the decay LoRA runs in f32 on the uncast weights
-    dw = p["dw_bias"] + torch.tanh(xw.to(torch.float32) @ p["dw_a"]) \
-        @ p["dw_b"]
+    # the decay LoRA runs in f32 on the uncast weights (promoted to f32
+    # where the trainer's gather_dtype cast them, as JAX promotes)
+    f32 = torch.float32
+    dw = p["dw_bias"] + torch.tanh(xw.to(f32) @ p["dw_a"].to(f32)) \
+        @ p["dw_b"].to(f32)
     # clip keeps the chunked form's exp(±Σ log w) inside f32 range
     w = torch.exp(-torch.exp(torch.clamp_max(dw, 0.5))).reshape(B, S, H, Dh)
-    rf, kf, vf = (t.to(torch.float32) for t in (r, k, v))
+    rf, kf, vf, u = (t.to(torch.float32) for t in (r, k, v, p["u"]))
     if cfg.rwkv_impl == "pallas" and ctx.mode == "prefill" and \
             S % cfg.rwkv_chunk == 0 and S >= cfg.rwkv_chunk:
         # the kernel starts from a zero state and returns the final one
-        out, state = wkv6(rf, kf, vf, w, p["u"])
+        out, state = wkv6(rf, kf, vf, w, u)
     else:
         state0 = cache.wkv if decode else torch.zeros(
             (B, H, Dh, Dh), dtype=torch.float32, device=x.device)
         if ctx.mode == "decode" or cfg.rwkv_impl == "scan" or \
                 S % cfg.rwkv_chunk != 0 or S < cfg.rwkv_chunk:
-            out, state = wkv_scan(rf, kf, vf, w, p["u"], state0)
+            out, state = wkv_scan(rf, kf, vf, w, u, state0)
         else:
-            out, state = wkv_chunked(rf, kf, vf, w, p["u"], state0,
+            out, state = wkv_chunked(rf, kf, vf, w, u, state0,
                                      chunk=cfg.rwkv_chunk)
     out = out.reshape(B, S, D)
     out = L.rms_norm(out.to(x.dtype), _c(p["ln_x"], cfg), cfg.norm_eps)

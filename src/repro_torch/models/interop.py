@@ -6,14 +6,9 @@ import numpy as np
 import torch
 
 from ..device import get_device
+from ..tree import tree_map
 from .config import ModelConfig
 from .model import check_supported
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def params_from_jax(cfg: ModelConfig, np_params: dict,
@@ -37,10 +32,10 @@ def params_from_jax(cfg: ModelConfig, np_params: dict,
     for li in range(cfg.n_layers):
         if li < n_grouped:
             group, slot = divmod(li, period)
-            layer = _tree_map(lambda a, g=group: np.asarray(a)[g],
-                              np_params["groups"][f"slot{slot}"])
+            layer = tree_map(lambda a, g=group: np.asarray(a)[g],
+                             np_params["groups"][f"slot{slot}"])
         else:
             layer = np_params["tail"][f"layer{li - n_grouped}"]
-        layers.append(_tree_map(tensor, layer))
+        layers.append(tree_map(tensor, layer))
     out["layers"] = layers
     return out

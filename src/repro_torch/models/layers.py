@@ -205,3 +205,49 @@ def _pallas_attention_ok(q, k, chunk, kv_map) -> bool:
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -100) -> torch.Tensor:
+    """Token-mean CE. logits: (B,S,V) any float dtype; labels: (B,S)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels != ignore_id).to(torch.float32)
+    return torch.sum((lse - gold) * mask) / torch.clamp_min(mask.sum(), 1.0)
+
+
+def chunked_cross_entropy(x: torch.Tensor, w_head: torch.Tensor,
+                          labels: torch.Tensor, n_chunks: int,
+                          ignore_id: int = -100,
+                          valid_vocab: int = 0) -> torch.Tensor:
+    """Cross-entropy without materializing full (B,S,V) logits: the
+    sequence axis goes through the LM head in ``n_chunks`` chunks, each
+    product in float32 (x and ``w_head`` upcast from their dtype).
+    Vocab columns from ``valid_vocab`` on are masked."""
+    s = x.shape[1]
+    if s % n_chunks:
+        raise ValueError(f"sequence length {s} is not a multiple of "
+                         f"{n_chunks} chunks")
+    cs = s // n_chunks
+    v = w_head.shape[-1]
+    pad_mask = None
+    if valid_vocab and valid_vocab != v:
+        pad_mask = torch.where(torch.arange(v, device=x.device) < valid_vocab,
+                               0.0, -1e9)
+    w = w_head.to(torch.float32)
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_tok = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        ls = labels[:, i * cs:(i + 1) * cs]
+        logits = x[:, i * cs:(i + 1) * cs].to(torch.float32) @ w
+        if pad_mask is not None:
+            logits = logits + pad_mask
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            ls.clamp_min(0).long()[..., None])[..., 0]
+        mask = (ls != ignore_id).to(torch.float32)
+        nll = nll + torch.sum((lse - gold) * mask)
+        n_tok = n_tok + mask.sum()
+    return nll / torch.clamp_min(n_tok, 1.0)

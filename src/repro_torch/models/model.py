@@ -12,7 +12,11 @@ walked by a Python loop.  Decode caches are a list with one entry per
 layer, likewise.
 
 Modes:
-* ``train``   — full-sequence forward.
+* ``train``   — full-sequence forward; :func:`loss_fn` adds the
+  next-token cross-entropy.  ``cfg.remat`` "block" (and
+  "block_save_coll", which differs from it only in which tensor-parallel
+  collective outputs it keeps, none on one device) recomputes each layer
+  in the backward (``torch.utils.checkpoint``).
 * ``prefill`` — full-sequence forward building decode caches.
 * ``decode``  — single-token step consuming/updating caches.
 """
@@ -20,12 +24,14 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import blocks as B
 from . import layers as L
 from .config import ATTN, LOCAL_ATTN, RGLRU, RWKV, ModelConfig
 
 BLOCK_TYPES = (ATTN, LOCAL_ATTN, RGLRU, RWKV)
+REMAT_BLOCK = ("block", "block_save_coll")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -67,6 +73,21 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
                                      dtype=torch.float32).mul_(D ** -0.5)
     params["layers"] = [_init_layer(lt, cfg, gen) for lt in cfg.layer_types()]
     return params
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` is ``meta``: :func:`init_params`
+    makes its tensors there, shapes and dtypes without storage."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree on the ``meta`` device — no allocation (the
+    counterpart of the JAX package's ``jax.eval_shape`` of the init)."""
+    return init_params(cfg, _MetaGenerator())
 
 
 # =============================================================================
@@ -113,10 +134,15 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 def _run_layers(params, x, ctx: B.Ctx, cfg: ModelConfig, caches=None):
     """Every layer in order. Returns (x, new_caches or None)."""
     new_caches = []
+    remat = ctx.mode == "train" and cfg.remat in REMAT_BLOCK
     for i, (lt, lp) in enumerate(zip(cfg.layer_types(), params["layers"])):
         sub_ctx = B.Ctx(ctx.positions, ctx.mode,
                         None if caches is None else caches[i])
-        x, c = _apply_layer(lt, lp, x, sub_ctx, cfg)
+        if remat:
+            x, c = checkpoint(_apply_layer, lt, lp, x, sub_ctx, cfg,
+                              use_reentrant=False)
+        else:
+            x, c = _apply_layer(lt, lp, x, sub_ctx, cfg)
         new_caches.append(c)
     return x, (None if all(c is None for c in new_caches) else new_caches)
 
@@ -158,6 +184,17 @@ def logits_from_hidden(params, x, cfg):
     if cfg.padded_vocab != cfg.vocab:   # mask vocab-padding columns
         out[..., cfg.vocab:] -= 1e9
     return out
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy (labels = batch['labels'])."""
+    x, _ = forward(params, batch, cfg, mode="train")
+    labels = batch["labels"]
+    if cfg.loss_chunk:
+        w = _head_matrix(params, cfg).to(x.dtype)
+        return L.chunked_cross_entropy(x, w, labels, cfg.loss_chunk,
+                                       valid_vocab=cfg.vocab)
+    return L.cross_entropy(logits_from_hidden(params, x, cfg), labels)
 
 
 def prefill(params, batch: dict, cfg: ModelConfig, s_max: int):

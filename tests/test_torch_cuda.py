@@ -761,3 +761,115 @@ def test_gateway_c2_on_card(card):
         gw.stop()
         T.close()
         T.backend.close()
+
+
+# ---------------------------------------------------------------------------
+# Training and the mesh on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "wkv6", "rglru_scan"])
+def test_kernels_raise_under_autograd_on_card(card, kernel):
+    """A kernel input that requires grad, in grad mode: the wrapper
+    raises before launching (the kernels have no backward), instead of
+    returning an output with no autograd history."""
+    x = (torch.rand(1, 16, 2, 16, device=card) * 0.5 + 0.25)
+    if kernel == "flash_attention":
+        args = [x.clone().requires_grad_(True), x.clone(), x.clone()]
+        fn = flash_attention
+    elif kernel == "wkv6":
+        args = [x.clone().requires_grad_(True), x.clone(), x.clone(),
+                x.clone(), torch.zeros(2, 16, device=card)]
+        fn = wkv6
+    else:
+        args = [x[..., 0].clone().requires_grad_(True), x[..., 0].clone()]
+        fn = rglru_scan
+    before = ops.kernel_launches()[kernel]
+    with pytest.raises(RuntimeError, match=f"{kernel} has no backward"):
+        fn(*args)
+    assert ops.kernel_launches()[kernel] == before
+    with torch.no_grad():
+        fn(*args)
+    assert ops.kernel_launches()[kernel] == before + 1
+
+
+def test_train_steps_card_match_cpu(card):
+    """Two smoke train steps of rwkv6 in float32 (TF32 off) on the card
+    against the CPU from the same seeded weights and batches: losses and
+    gradient norms within rtol=1e-4, and no hand-written kernel runs."""
+    from repro_torch.train import OptConfig, init_train_state
+    from repro_torch.train.trainer import make_train_step
+    cfg = smoke_config("rwkv6-1.6b")
+    opt = OptConfig(lr=1e-3, warmup_steps=1)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 4, 33)).astype(np.int64)
+    out = {}
+    before = ops.kernel_launches()
+    for dev in ("cpu", "cuda"):
+        params, state = init_train_state(cfg, torch.Generator()
+                                         .manual_seed(0))
+        params, state = to_device((params, state), dev)
+        step = make_train_step(cfg, opt)
+        out[dev] = []
+        for t in toks:
+            t = torch.from_numpy(t).to(dev)
+            params, state, m = step(params, state, {"tokens": t[:, :-1],
+                                                    "labels": t[:, 1:]})
+            out[dev].append((float(m["loss"]), float(m["grad_norm"])))
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
+    assert ops.kernel_launches() == before
+
+
+def test_launch_train_smoke_on_card(card, tmp_path):
+    from repro_torch.launch import train
+    losses = train.main(["--smoke", "--steps", "3", "--workdir",
+                         str(tmp_path), "--ckpt-every", "2"])
+    assert len(losses) == 3 and np.isfinite(losses).all()
+
+
+def test_checkpoint_card_to_cpu_bit_exact(card, tmp_path):
+    from repro_torch import checkpoint as C
+    tree = {"w": torch.randn(64, 8, device=card),
+            "h": torch.randn(5, device=card).to(torch.bfloat16),
+            "step": torch.tensor(3, dtype=torch.int32, device=card)}
+    C.save(str(tmp_path), 0, tree)
+    for like_dev in ("cuda", "cpu"):
+        like = {k: v.to(like_dev) for k, v in tree.items()}
+        back, _ = C.restore(str(tmp_path), like)
+        for k, v in tree.items():
+            assert back[k].device.type == like_dev
+            assert back[k].dtype == v.dtype
+            assert torch.equal(back[k].cpu().reshape(-1).view(torch.uint8),
+                               v.cpu().reshape(-1).view(torch.uint8))
+
+
+def test_one_rank_nccl_world(card, tmp_path):
+    """A one-rank NCCL world: the sharded degree and PageRank reduce with
+    all_reduce on the card and equal the world of one; the int8 pod
+    mean stays within scale/2 of its input."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.analytics import distributed as D
+    from repro_torch.core.interop import coo_from_numpy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import compressed_pod_mean
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh((1,), ("data",))
+        assert mesh.group("data") is not None
+        rng = np.random.default_rng(0)
+        r, c = rng.integers(0, 50, (2, 301))
+        m = coo_from_numpy(r, c, np.ones(301, np.float32), (50, 50))
+        assert torch.equal(D.degree_sharded(m, mesh), D.degree_sharded(m))
+        np.testing.assert_allclose(D.pagerank_sharded(m, mesh, 10).cpu(),
+                                   D.pagerank_sharded(m, None, 10).cpu(),
+                                   rtol=1e-5, atol=1e-7)
+        g = {"w": torch.randn(64, 32, device=card)}
+        out = compressed_pod_mean(g, make_mesh((1,), ("pod",)))
+        scale = float(g["w"].abs().max()) / 127
+        assert float((out["w"] - g["w"]).abs().max()) <= scale / 2 + 1e-7
+    finally:
+        dist.destroy_process_group()

@@ -198,3 +198,83 @@ class TestPipelineExample:
         assert got["c2_truth"] in got["c2"][:3]
         np.testing.assert_allclose(got["scores"], want["scores"], rtol=RTOL,
                                    atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# examples/train_packet_lm.py
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 30
+STEP0_RTOL = 1e-3       # the examples' shared tolerance for step 0's loss
+
+
+def train_example(pkg, workdir, jax_params):
+    """``examples/train_packet_lm.py``'s calls at its own config, from the
+    JAX package's seeded parameters (carried across for the port); the
+    losses and the generated text."""
+    configs, data = mod(pkg, "configs"), mod(pkg, "data")
+    serve, train = mod(pkg, "launch.serve"), mod(pkg, "launch.train")
+    T = mod(pkg, "train")
+    pattern = train.synth_corpus(os.path.join(workdir, "data"), n_files=2)
+    stream = data.TokenStream(pattern, seq_len=128, batch=4)
+    cfg = configs.smoke_config("rwkv6-1.6b")
+    opt = T.OptConfig(lr=1e-3, warmup_steps=5)
+    if pkg == "repro":
+        import jax
+        import jax.numpy as jnp
+        params = jax.tree.map(jnp.asarray, jax_params)
+        step_fn = jax.jit(T.make_train_step(cfg, opt,
+                                            mod(pkg, "launch.mesh")
+                                            .make_smoke_mesh(1)))
+
+        def batch_of(b):
+            return {k: jnp.minimum(jnp.asarray(v), cfg.vocab - 1)
+                    for k, v in b.items()}
+    else:
+        import torch
+        params = mod(pkg, "models").params_from_jax(cfg, jax_params, "cpu")
+        step_fn = T.make_train_step(cfg, opt, mod(pkg, "launch.mesh")
+                                    .make_smoke_mesh(1))
+
+        def batch_of(b):
+            return {k: torch.from_numpy(np.minimum(v, cfg.vocab - 1))
+                    for k, v in b.items()}
+    opt_state = T.adamw_init(params)
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        params, opt_state, m = step_fn(params, opt_state,
+                                       batch_of(stream.next_batch()))
+        losses.append(float(m["loss"]))
+    outs = serve.generate(cfg, params, ["64.22."], max_new=24, s_max=192)
+    return {"losses": losses, "outs": outs}
+
+
+@pytest.fixture(scope="module")
+def train_runs(tmp_path_factory):
+    import jax
+    from repro.configs import smoke_config
+    from repro.models import init_params
+    prev = set_device("cpu")
+    jax_params = jax.tree.map(np.asarray, init_params(
+        smoke_config("rwkv6-1.6b"), jax.random.key(0)))
+    out = {pkg: train_example(pkg, str(tmp_path_factory.mktemp(pkg)),
+                              jax_params) for pkg in PACKAGES}
+    set_device(prev)
+    return out
+
+
+class TestTrainExample:
+    def test_step0_loss(self, train_runs):
+        np.testing.assert_allclose(train_runs["repro_torch"]["losses"][0],
+                                   train_runs["repro"]["losses"][0],
+                                   rtol=STEP0_RTOL)
+
+    @pytest.mark.parametrize("pkg", PACKAGES)
+    def test_loss_improves(self, train_runs, pkg):
+        losses = train_runs[pkg]["losses"]
+        assert len(losses) == TRAIN_STEPS and np.isfinite(losses).all()
+        assert np.mean(losses[-5:]) < np.mean(losses[:5])
+
+    def test_generate_returns_text(self, train_runs):
+        outs = train_runs["repro_torch"]["outs"]
+        assert len(outs) == 1 and isinstance(outs[0], str)
