@@ -61,7 +61,9 @@ Phases, each of which must pass (any failure raises, exit code != 0):
    ``attention_naive``) on the card: the serve shape (8, 512, 16, 256)
    with one kv head, bf16, causal, window 2048; (1, 4096, 16, 256), the
    same, where the window cuts; (2, 512, 16, 128) with 4 kv heads in
-   float32, causal.  bf16 within rtol=atol=2e-2 of the plain version on
+   float32, causal; phi-3-vision's prefill shape (8, 1024, 32, 96), one
+   kv head a query head (each block one head), bf16, causal, its head
+   dim padded to 128 in shared memory.  bf16 within rtol=atol=2e-2 of the plain version on
    the same inputs (which rounds its softmax weights to bf16 before the
    product: up to 2^-9 of |v| per weight, plus half an output ulp each)
    and within rtol=atol=1e-2 of the plain version on the same values in
@@ -192,6 +194,56 @@ Phases, each of which must pass (any failure raises, exit code != 0):
     leaf (plus the float32 rounding of the dequantized value, under
     1e-5 scale).
 
+15. The MoE, encoder-decoder and vision families on the card (after
+    phase 9, each model freed before the next; peak memory, profiled
+    prefill and decode as in phase 9, and launch counts zeroed just
+    before and read just after each ``generate``).  (a)
+    granite-moe-3b-a800m at full width and depth (3,349,513,728
+    parameter entries; 40 experts top-8, 24 heads padded to 32),
+    ``attention_impl="pallas"``, the same 8 prompts, ``generate(max_new=
+    32)``: no kernel launched (the padded heads' head->kv map fails the
+    kernel's precondition, as in the JAX package); logs the share of
+    layer 0's prefill (token, choice) pairs dropped by capacity (C = 128
+    at S = 512) and the share routed alike in bf16 and float32; the bf16
+    prefill logits against a float32 prefill on the same weights (over
+    the real vocabulary), held over the first layer (the same embedding,
+    layer and head) within a relative norm error of 0.05 and logged over
+    2 and all 32.  Teacher forcing is no check for a MoE under capacity
+    pressure: the capacity, and so which pairs drop, depends on S.
+    Deeper, bf16 and float32 are not comparable: a (token, choice) pair
+    whose two best experts nearly tie routes differently in the two
+    (2.5% of layer 0's pairs), reorders its expert's capacity queue,
+    which moves which later pairs drop, and the next layers amplify it.
+    ``scripts/moe_precision.py`` measures it on the CPU at full width for
+    these 8 prompts: 0.0077 over 1 layer and 0.073 over 2 in the port,
+    0.0074 and 0.115 in the JAX package on the same weights (float32 of
+    the two within 1.4e-6, ``--layers 1 2 --with-jax``); and with no
+    pair dropped, 0.066 over 2 layers and 0.26 over 8 (``--layers 2 8
+    --no-drops``, the port's init).  0.05 is six times the 1-layer
+    figure: bf16 rounding and layer 0's own flips.  (b) whisper-large-v3
+    (2,398,169,600; 32 encoder and 32 decoder layers, 20 heads padded to
+    32): ``generate`` with zero frames, no kernel (cross-attention's
+    1500 keys exceed the attention chunk and ask for the kernel; the
+    head map refuses it); the encoder's device time apart; then seeded
+    normal frames: prefill and 32 decode steps over the generated tokens
+    with the encoder output of those frames, each within 0.1 of one
+    teacher-forced forward.  (c) phi-3-vision-4.2b (3,831,696,384; 576
+    image tokens): 447-byte prompts, so S = 448 + 576 = 1024 where the
+    kernel's precondition holds (511 bytes would give 1088, which it
+    refuses; logged): exactly 32 ``flash_attention`` launches, all in
+    prefill; then seeded normal image embeddings through the kernel path
+    and the plain path (chunked, naive at S = 1024) over the generated
+    tokens: prefill and all 32 decode steps' logits within 0.1; the
+    kernel measured on layer 0's inputs.  (d) qwen3-moe-235b-a22b's full
+    parameter tree counted on ``meta`` (235,094,659,072).  (e) Every
+    family's smoke config (float32, ``attention_impl="pallas"``) on the
+    card and on the CPU from the same seeded parameters and batch
+    (normal frames and image embeddings, 32 prefill positions): prefill
+    and 4 decode steps' logits within rtol=atol=1e-4 (float32 matmuls
+    in another order, TF32 off), layer 0's expert of every (token,
+    choice) pair equal (capacity factor 4: nothing dropped), one
+    ``flash_attention`` launch a layer on the card.
+
 Prints each kernel's registers and shared memory (``cudaFuncGetAttributes``
 through each library's ``<lib>_attrs``), the card's name and power limit,
 a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -238,7 +290,8 @@ from repro_torch.kernels.segsum import segsum, segsum_windowed  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import blocks, init_params, layers, model  # noqa: E402
+from repro_torch.models import (ShapeConfig, blocks,  # noqa: E402
+                                init_params, inputs, layers, model)
 from repro_torch.pipeline import (PipelineConfig,  # noqa: E402
                                   TrafficConfig, botnet_truth,
                                   records_to_tsv, run_pipeline,
@@ -288,13 +341,28 @@ FLASH_REPLACES = "src/repro/kernels/flash_attention.py:72"
 # (B, S, H, KV, Dh, dtype, causal, window)
 FLASH_CASES = [(8, 512, 16, 1, 256, torch.bfloat16, True, 2048),
                (1, 4096, 16, 1, 256, torch.bfloat16, True, 2048),
-               (2, 512, 16, 4, 128, torch.float32, True, 0)]
+               (2, 512, 16, 4, 128, torch.float32, True, 0),
+               (8, 1024, 32, 32, 96, torch.bfloat16, True, 0)]
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # rtol = atol
 FLASH_F32_TOL = 1e-2          # bf16 output against float32 arithmetic
 # bf16: relative Frobenius error against float32 arithmetic in each of
 # FLASH_BANDS bands of query positions
 FLASH_BANDS, FLASH_BAND_TOL = 4, 5e-3
 RG_ARCH = "recurrentgemma-9b"
+MOE_ARCH, ENCDEC_ARCH, VISION_ARCH, QWEN_MOE_ARCH = \
+    "granite-moe-3b-a800m", "whisper-large-v3", "phi-3-vision-4.2b", \
+    "qwen3-moe-235b-a22b"
+# parameter entries of each full config (the JAX package's tree)
+FAMILY_PARAMS = {MOE_ARCH: 3_349_513_728, ENCDEC_ARCH: 2_398_169_600,
+                 VISION_ARCH: 3_831_696_384, QWEN_MOE_ARCH: 235_094_659_072}
+# S = 447 + BOS + 576 image tokens = 1024, where the kernel's
+# precondition holds; s_max leaves room for the 32 decode steps
+VISION_PROMPT_BYTES, VISION_S_MAX = 447, 1056
+# bf16 against float32 prefill logits over the first MOE_F32_LAYERS
+# layers of the full-width weights (phase 15 (a) says why not all 32);
+# logged over these depths
+MOE_F32_LAYERS, MOE_F32_REL, MOE_F32_LOGGED = 1, 0.05, (1, 2)
+FAMILY_SMOKE_TOL = 1e-4       # card against CPU, float32 smoke configs
 RG_STATE_TOL = 1e-4           # layer 0 RG-LRU state, rtol = atol
 SEGSUM_SOURCE = "src/repro_torch/kernels/csrc/segsum.cu"
 SEGSUMS = {"segsum": dict(fn=segsum,
@@ -1029,18 +1097,6 @@ def wkv6_at_shapes(dev: torch.device) -> list:
 # Phase 6: serve rwkv6-1.6b at full width.
 # ---------------------------------------------------------------------------
 
-def params_iter(params: dict):
-    """Every parameter tensor: the top-level ones and each layer's
-    blocks' (``{"rwkv": {...}}``, ``{"rglru": {...}, "mlp": {...}}``)."""
-    for key, val in params.items():
-        if key == "layers":
-            for layer in val:
-                for block in layer.values():
-                    yield from block.values()
-        else:
-            yield val
-
-
 class ServeRecorder:
     """Time, and keep what they return, the model calls that the serving
     entry point makes (``serve.prefill``, ``serve.decode_step``), with the
@@ -1102,11 +1158,10 @@ class ServeRecorder:
         return False
 
 
-def serve_prompts() -> list:
+def serve_prompts(n: int = SERVE_PROMPT_BYTES) -> list:
     """Packet-log text (the port's synthetic window as TSV), cut into
-    ``SERVE_BATCH`` prompts of ``SERVE_PROMPT_BYTES`` ASCII bytes."""
+    ``SERVE_BATCH`` prompts of ``n`` ASCII bytes."""
     text = records_to_tsv(synth_packets(TrafficConfig(**MAIN_CFG), 2.0))
-    n = SERVE_PROMPT_BYTES
     prompts = [text[i * n:(i + 1) * n] for i in range(SERVE_BATCH)]
     check(all(len(p.encode()) == n for p in prompts),
           "serve prompts are not all ASCII of the full length")
@@ -1149,8 +1204,19 @@ def device_share(fn, host_ms: float) -> dict:
             "busy": busy_ms / host_ms}
 
 
+def n_tensor_params(params: dict) -> int:
+    """Entries of every parameter tensor (the tree's leaves)."""
+    return sum(t.numel() for t in tree_leaves(params))
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def logit_err(cfg, got: torch.Tensor, want: torch.Tensor) -> float:
+    """:func:`rel_err` over the config's real vocabulary: the padding
+    columns hold -1e9 in both and would swamp the norm."""
+    return rel_err(got[..., :cfg.vocab], want[..., :cfg.vocab])
 
 
 def make_model(arch: str, dev: torch.device, tag: str, **impls):
@@ -1164,24 +1230,26 @@ def make_model(arch: str, dev: torch.device, tag: str, **impls):
         f"{''.join(cfg.layer_types())}, d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads ({cfg.n_kv_heads} kv) of "
         f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
-        f"{cfg.dtype}; {sum(p.numel() for p in params_iter(params)) / 1e9:.3f}"
+        f"{cfg.dtype}; {n_tensor_params(params) / 1e9:.3f}"
         f" B params made in {time.perf_counter() - t0:.2f} s")
     return cfg, params
 
 
-def recorded_generate(cfg, params, wrappers: dict, tag: str):
+def recorded_generate(cfg, params, wrappers: dict, tag: str,
+                      prompt_bytes: int = SERVE_PROMPT_BYTES,
+                      s_max: int = SERVE_S_MAX):
     """One warm-up ``generate``, then the recorded one with the launch
     counts zeroed just before and read just after; checks the shapes, the
     logits and that decode launched no kernel.  Returns (recorder,
     launches, times, device shares)."""
-    prompts = serve_prompts()
-    serve.generate(cfg, params, prompts, max_new=2, s_max=SERVE_S_MAX)
+    prompts = serve_prompts(prompt_bytes)
+    serve.generate(cfg, params, prompts, max_new=2, s_max=s_max)
 
     ops.reset_launches()
     with ServeRecorder(wrappers) as rec:
         t0 = time.perf_counter()
         outs = serve.generate(cfg, params, prompts, max_new=SERVE_NEW,
-                              s_max=SERVE_S_MAX)
+                              s_max=s_max)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
     launches = ops.kernel_launches()
@@ -1191,7 +1259,7 @@ def recorded_generate(cfg, params, wrappers: dict, tag: str):
           all(not any(n.values()) for *_, n in rec.steps),
           f"[{tag}] decode launched a kernel")
     b, s = rec.batch["tokens"].shape
-    check((b, s) == (SERVE_BATCH, SERVE_PROMPT_BYTES + 1) and
+    check((b, s) == (SERVE_BATCH, prompt_bytes + 1) and
           len(outs) == SERVE_BATCH, f"[{tag}] shapes {(b, s)}, {len(outs)}")
     check(rec.logits.shape == (b, 1, cfg.padded_vocab) and
           all(bool(torch.isfinite(lg).all()) for lg in
@@ -1214,7 +1282,7 @@ def recorded_generate(cfg, params, wrappers: dict, tag: str):
 
     busy = {
         "prefill": device_share(lambda: model.prefill(
-            params, rec.batch, cfg, s_max=SERVE_S_MAX), rec.prefill_s * 1e3),
+            params, rec.batch, cfg, s_max=s_max), rec.prefill_s * 1e3),
         "decode_step": device_share(lambda: model.decode_step(
             params, rec.last_caches, rec.steps[-1][0], cfg), decode_ms)}
     for name, d in busy.items():
@@ -1224,19 +1292,19 @@ def recorded_generate(cfg, params, wrappers: dict, tag: str):
     return rec, launches, times, busy
 
 
-def teacher_forced(params, rec: ServeRecorder, plain, tag: str):
+def teacher_forced(params, rec: ServeRecorder, plain, tag: str,
+                   s_max: int = SERVE_S_MAX):
     """The plain path on the same weights over the kernel path's tokens:
     its prefill caches, and the relative norm errors of the prefill
     logits and every decode step's logits; it must launch no kernel."""
     k0 = ops.kernel_launches()
-    logits, caches = model.prefill(params, rec.batch, plain,
-                                   s_max=SERVE_S_MAX)
+    logits, caches = model.prefill(params, rec.batch, plain, s_max=s_max)
     prefill_caches = caches
-    errs = {"prefill_logits": rel_err(rec.logits, logits),
+    errs = {"prefill_logits": logit_err(plain, rec.logits, logits),
             "decode_logits": []}
     for batch, want, *_ in rec.steps:
         logits, caches = model.decode_step(params, caches, batch, plain)
-        errs["decode_logits"].append(rel_err(want, logits))
+        errs["decode_logits"].append(logit_err(plain, want, logits))
     torch.cuda.synchronize()
     check(ops.kernel_launches() == k0, f"[{tag}] plain path launched a "
           f"kernel: {k0} -> {ops.kernel_launches()}")
@@ -1522,6 +1590,311 @@ def rg_serve_path(dev: torch.device) -> dict:
     return dict(launches=launches, times=times, errs=errs, busy=busy,
                 peak_gb=peak_gb, main_rglru=main_rglru,
                 main_flash=main_flash)
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: serve the MoE, encoder-decoder and vision families.
+# ---------------------------------------------------------------------------
+
+def host_and_device_ms(fn) -> dict:
+    """One timed call of ``fn`` (host clock around a synchronized call),
+    then one under ``torch.profiler`` (:func:`device_share`)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    return dict(device_share(fn, host_ms), host_ms=host_ms)
+
+
+def family_model(arch: str, dev, tag: str, **impls):
+    """:func:`make_model` with the peak-memory counter reset first and
+    the parameter tensors counted against :data:`FAMILY_PARAMS`."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = make_model(arch, dev, tag, **impls)
+    n = n_tensor_params(params)
+    check(n == FAMILY_PARAMS[arch], f"[{tag}] {n} parameter entries, want "
+          f"{FAMILY_PARAMS[arch]}")
+    return cfg, params
+
+
+def family_summary(tag: str, cfg, times: dict, busy: dict, **extra) -> dict:
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{tag}] peak device memory {peak_gb:.2f} GB")
+    return dict(arch=cfg.name, times=times, device=busy, peak_gb=peak_gb,
+                **extra)
+
+
+def moe_serve(dev) -> dict:
+    """(a) granite-moe-3b-a800m at full width through the serving entry
+    point: no kernel launched (24 heads padded to 32: a head->kv map,
+    which the flash_attention precondition refuses); the share of layer
+    0's prefill (token, choice) pairs past capacity; the bf16 prefill
+    logits against a float32 prefill on the same weights, held over the
+    first MOE_F32_LAYERS layers and logged over all."""
+    cfg, params = family_model(MOE_ARCH, dev, "moe", attention_impl="pallas")
+    rec, launches, times, busy = recorded_generate(
+        cfg, params, {"apply_moe": (blocks, "apply_moe")}, "moe")
+    check(not any(launches.values()), f"[moe] kernel launches {launches}")
+    m = cfg.moe
+    p, x, _ = rec.args["apply_moe"][0]
+    C = blocks.moe_capacity(m, x.shape[1])
+
+    def layer0_routing(x, c):
+        h = layers.rms_norm(x, blocks._c(p["ln"], c), c.norm_eps)
+        probs = torch.softmax(h.float() @ p["router"].float(), dim=-1)
+        return blocks._token_choice_dispatch(probs, m.top_k, C)
+
+    # the float32 prefill on the same weights, its layer-0 MoE input kept
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    first = {}
+    real = blocks.apply_moe
+
+    def spy(p_, x_, c_):
+        first.setdefault("x", x_)
+        return real(p_, x_, c_)
+
+    blocks.apply_moe = spy
+    try:
+        logits32, _ = model.prefill(params, rec.batch, cfg32,
+                                    s_max=SERVE_S_MAX)
+    finally:
+        blocks.apply_moe = real
+    errs = {cfg.n_layers: logit_err(cfg, rec.logits, logits32)}
+    del logits32
+    for n in MOE_F32_LOGGED:
+        cut = dict(params, layers=params["layers"][:n])
+        cfg_cut = dataclasses.replace(cfg, n_layers=n)
+        l16, _ = model.prefill(cut, rec.batch, cfg_cut, s_max=SERVE_S_MAX)
+        l32, _ = model.prefill(cut, rec.batch, dataclasses.replace(
+            cfg_cut, dtype="float32"), s_max=SERVE_S_MAX)
+        errs[n] = logit_err(cfg, l16, l32)
+    err = errs[MOE_F32_LAYERS]
+    slot, keep, _ = layer0_routing(x, cfg)
+    dropped = 1.0 - float(keep.float().mean())
+    slot32, keep32, _ = layer0_routing(first["x"], cfg32)
+    same_expert = float((slot // C == slot32 // C).float().mean())
+    log(f"[moe] layer 0 prefill routing: C = {C} slots an expert, "
+        f"{dropped:.4%} of {keep.numel()} (token, choice) pairs dropped by "
+        f"capacity (float32 input: {1.0 - float(keep32.float().mean()):.4%})"
+        f", {same_expert:.4%} of pairs on the same expert in bf16 and "
+        f"float32; bf16 prefill logits against float32, relative norm "
+        f"error by the number of layers run {errs} (limit {MOE_F32_REL} "
+        f"over {MOE_F32_LAYERS})")
+    check(err <= MOE_F32_REL, f"[moe] bf16 against float32 prefill logits "
+          f"over {MOE_F32_LAYERS} layer(s) {err:.4g} > {MOE_F32_REL}")
+    return family_summary("moe", cfg, times, busy, launches=launches,
+                          capacity=C, dropped_share=dropped,
+                          same_expert_bf16_f32=same_expert,
+                          f32_rel_err_by_layers=errs)
+
+
+def encdec_serve(dev) -> dict:
+    """(b) whisper-large-v3 at full width: generate through the entry
+    point (zero frames, as the JAX package's generate), no kernel
+    launched; the encoder's device time apart; then seeded normal frames:
+    prefill, decode over the generated tokens with the encoder output of
+    those frames, teacher-forced against one forward over prompt and
+    generated tokens."""
+    cfg, params = family_model(ENCDEC_ARCH, dev, "encdec",
+                               attention_impl="pallas")
+    rec, launches, times, busy = recorded_generate(cfg, params, {}, "encdec")
+    check(not any(launches.values()), f"[encdec] kernel launches {launches}")
+    busy["encoder"] = host_and_device_ms(lambda: model._encode(
+        params, rec.batch["frames"], cfg, "prefill"))
+    log(f"[encdec] encoder over {tuple(rec.batch['frames'].shape)} frames: "
+        f"{busy['encoder']}")
+
+    k0 = ops.kernel_launches()
+    g = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.randn(rec.batch["frames"].shape, generator=g, device=dev)
+    prompt = rec.batch["tokens"]
+    logits, caches = model.prefill(params, {"tokens": prompt,
+                                            "frames": frames}, cfg,
+                                   s_max=SERVE_S_MAX)
+    enc = model._encode(params, frames, cfg, "prefill")
+    got = [logits]
+    for batch, *_ in rec.steps:
+        logits, caches = model.decode_step(params, caches, dict(
+            batch, enc_out=enc), cfg)
+        got.append(logits)
+    gen = torch.cat([b["tokens"] for b, *_ in rec.steps], dim=1)
+    x, _ = model.forward(params, {"tokens": torch.cat([prompt, gen], 1),
+                                  "frames": frames}, cfg, mode="prefill")
+    s = prompt.shape[1]
+    errs = [logit_err(cfg, lg, model.logits_from_hidden(
+        params, x[:, s - 1 + i:s + i], cfg)) for i, lg in enumerate(got)]
+    torch.cuda.synchronize()
+    check(ops.kernel_launches() == k0, "[encdec] teacher forcing launched "
+          "a kernel")
+    log(f"[encdec] seeded frames: prefill and {len(got) - 1} decode steps "
+        f"against one forward, relative norm error {min(errs):.3g}.."
+        f"{max(errs):.3g} (limit {SERVE_REL})")
+    check(max(errs) <= SERVE_REL, f"[encdec] decode against teacher forcing "
+          f"{max(errs):.3g} > {SERVE_REL}")
+    return family_summary("encdec", cfg, times, busy, launches=launches,
+                          tf_rel_err=max(errs))
+
+
+def vision_serve(dev) -> dict:
+    """(c) phi-3-vision-4.2b at full width: 447-byte prompts (S = 448 +
+    576 = 1024, where the kernel's precondition holds; 511 bytes would
+    give 1088, which it refuses) through the entry point with exactly one
+    flash_attention launch a layer, all in prefill; then seeded normal
+    image embeddings through the kernel path and the plain path
+    (chunked, naive at S = 1024) over the generated tokens."""
+    cfg, params = family_model(VISION_ARCH, dev, "vision",
+                               attention_impl="pallas")
+    for n in (VISION_PROMPT_BYTES, SERVE_PROMPT_BYTES):
+        s = n + 1 + cfg.n_img_tokens
+        q = torch.empty((SERVE_BATCH, s, cfg.n_heads,
+                         cfg.resolved_head_dim), device="meta")
+        log(f"[vision] {n}-byte prompts: S = {s}, flash_attention "
+            f"precondition {layers._pallas_attention_ok(q, q, cfg.attention_chunk, None)}")
+    rec, launches, times, busy = recorded_generate(
+        cfg, params, {"flash_attention": (layers, "flash_attention")},
+        "vision", prompt_bytes=VISION_PROMPT_BYTES, s_max=VISION_S_MAX)
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = cfg.n_layers
+    check(launches == want and rec.prefill_launches == want,
+          f"[vision] launches {launches} (prefill {rec.prefill_launches}), "
+          f"want {want}")
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    img = torch.randn(rec.batch["img_embeds"].shape, generator=g, device=dev)
+    batch = {"tokens": rec.batch["tokens"], "img_embeds": img}
+    out = {}
+    for name, c in (("kernels", cfg),
+                    ("plain", dataclasses.replace(cfg,
+                                                  attention_impl="chunked"))):
+        k0 = ops.kernel_launches()
+        logits, caches = model.prefill(params, batch, c, s_max=VISION_S_MAX)
+        lgs = [logits]
+        for step, *_ in rec.steps:
+            logits, caches = model.decode_step(params, caches, step, c)
+            lgs.append(logits)
+        torch.cuda.synchronize()
+        k1 = ops.kernel_launches()
+        out[name] = lgs
+        n = k1["flash_attention"] - k0["flash_attention"]
+        check(n == (cfg.n_layers if name == "kernels" else 0),
+              f"[vision] {name} path: {n} flash_attention launches")
+    errs = [logit_err(cfg, a, b)
+            for a, b in zip(out["kernels"], out["plain"])]
+    log(f"[vision] seeded image embeddings, kernel against plain path: "
+        f"prefill logits {errs[0]:.3g}, decode logits {min(errs[1:]):.3g}.."
+        f"{max(errs[1:]):.3g} (limit {SERVE_REL})")
+    check(max(errs) <= SERVE_REL, f"[vision] kernel and plain paths differ "
+          f"by {max(errs):.3g} > {SERVE_REL}")
+    args, kw = rec.args["flash_attention"]
+    main_flash = measure_flash(*args, **kw)
+    log(f"[vision] flash_attention on layer 0's inputs {main_flash['shape']}"
+        f": kernel {main_flash['ms']:.4f} ms, plain "
+        f"{main_flash['plain_ms']:.4f} ms, library "
+        f"{main_flash['library_ms']} ms, bound {main_flash['bound_ms']:.4f}"
+        f" ms, band errors {main_flash['band_rel_err_vs_f32']}")
+    return family_summary("vision", cfg, times, busy, launches=launches,
+                          rel_err=max(errs), main_flash=main_flash)
+
+
+def smoke_card_vs_cpu(dev) -> dict:
+    """(d), (e): qwen3-moe's full parameter tree counted on ``meta``;
+    then every family's smoke config (attention_impl="pallas") on the
+    card and on the CPU from the same seeded parameters and batch (normal
+    frames and image embeddings): float32 prefill logits and 4 decode
+    steps' logits within rtol=atol=FAMILY_SMOKE_TOL, layer 0's experts of
+    every (token, choice) pair equal (capacity factor 4: no drops)."""
+    n = n_tensor_params(model.abstract_params(get_config(QWEN_MOE_ARCH)))
+    log(f"[families] {QWEN_MOE_ARCH} full config on meta: {n} parameter "
+        f"entries")
+    check(n == FAMILY_PARAMS[QWEN_MOE_ARCH], f"{QWEN_MOE_ARCH}: {n} "
+          f"parameter entries, want {FAMILY_PARAMS[QWEN_MOE_ARCH]}")
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in (MOE_ARCH, QWEN_MOE_ARCH, ENCDEC_ARCH, VISION_ARCH):
+        cfg = dataclasses.replace(smoke_config(arch), attention_impl="pallas")
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        # 32 positions in prefill (image prefix included): a multiple of
+        # the smoke attention chunk, so every arch reaches the kernel
+        offset = cfg.n_img_tokens if cfg.frontend == "vision" else 0
+        shape = ShapeConfig("prefill", 32 - offset, 2, "prefill")
+        batch = inputs.make_batch(cfg, shape, seed=3, device=cpu)
+        steps = np.random.default_rng(4).integers(0, cfg.vocab, (2, 4))
+        res = {}
+        for where, d in (("cpu", cpu), ("card", dev)):
+            set_device(d.type)
+            p = tree_map(lambda t: t.to(d), params)
+            b = {k: v.to(d) for k, v in batch.items()}
+            k0 = ops.kernel_launches()["flash_attention"]
+            logits, caches = model.prefill(p, b, cfg, s_max=48)
+            lgs = [logits]
+            pos = 32
+            enc = model._encode(p, b["frames"], cfg, "prefill") \
+                if cfg.is_encdec else None
+            for i in range(steps.shape[1]):
+                db = {"tokens": torch.from_numpy(steps[:, i:i + 1].astype(
+                          np.int32)).to(d),
+                      "positions": torch.full((2, 1), pos + i,
+                                              dtype=torch.int32, device=d)}
+                if enc is not None:
+                    db["enc_out"] = enc
+                logits, caches = model.decode_step(p, caches, db, cfg)
+                lgs.append(logits)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            n_flash = ops.kernel_launches()["flash_attention"] - k0
+            experts = None
+            if cfg.moe is not None:      # layer 0's router input, plain
+                x, pos, *_ = model._embed_inputs(p, b, cfg, "prefill")
+                x, _ = blocks.apply_attn(p["layers"][0]["attn"], x,
+                                         blocks.Ctx(pos), dataclasses.replace(
+                                             cfg, attention_impl="naive"))
+                mlp = p["layers"][0]["mlp"]
+                h = layers.rms_norm(x, mlp["ln"], cfg.norm_eps)
+                probs = torch.softmax(h @ mlp["router"], dim=-1)
+                C = blocks.moe_capacity(cfg.moe, x.shape[1])
+                slot, keep, _ = blocks._token_choice_dispatch(
+                    probs, cfg.moe.top_k, C)
+                check(bool(keep.all()), f"[families] {arch}: smoke "
+                      f"routing dropped pairs")
+                experts = (slot // C).cpu()
+            res[where] = ([t.cpu() for t in lgs], experts, n_flash)
+        set_device("cuda")
+        (c_lgs, c_exp, _), (g_lgs, g_exp, n_flash) = res["cpu"], res["card"]
+        err = max(float((a - b).abs().max()) for a, b in zip(g_lgs, c_lgs))
+        check(all(torch.allclose(a, b, rtol=FAMILY_SMOKE_TOL,
+                                 atol=FAMILY_SMOKE_TOL)
+                  for a, b in zip(g_lgs, c_lgs)),
+              f"[families] {arch} smoke: card against CPU max abs err {err}")
+        check(c_exp is None or torch.equal(c_exp, g_exp),
+              f"[families] {arch} smoke: layer 0 experts differ")
+        check(n_flash == cfg.n_layers, f"[families] {arch} smoke: "
+              f"{n_flash} flash_attention launches on the card")
+        out[arch] = dict(max_abs_err=err, flash_launches=n_flash)
+        log(f"[families] {arch} smoke, card against CPU: prefill and "
+            f"{steps.shape[1]} decode steps max abs err {err:.3g}, "
+            f"{n_flash} flash_attention launches on the card")
+    out[QWEN_MOE_ARCH]["full_params"] = n
+    return out
+
+
+def families_path(dev) -> dict:
+    """Phase 15: each model freed before the next."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name, fn in (("moe", moe_serve), ("encdec", encdec_serve),
+                     ("vision", vision_serve),
+                     ("smoke", smoke_card_vs_cpu)):
+        t0 = time.perf_counter()
+        out[name] = fn(dev)
+        out[name]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[families] phase 15 in {out['seconds']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2185,6 +2558,12 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[families] device memory before: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    fam = families_path(dev)
+
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"[train] device memory before: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     trained = train_path(dev, card)
@@ -2255,16 +2634,22 @@ def main() -> int:
         "main_path": {k: main_r[k] for k in ("shape", "ms", "plain_ms",
                                              "bound_ms", "max_abs_err")},
     })
-    head, long_, gqa = flash
+    head, long_, gqa, vision = flash
     main_f = rg["main_flash"]
+    main_v = fam["vision"].pop("main_flash")
     keys = ("shape", "kv_heads", "dtype", "window", "ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by", "max_abs_err")
     bf16_keys = keys + ("band_rel_err_vs_f32",)
     rows.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
-        "launches": rg["launches"]["flash_attention"],
-        "max_abs_err": max(m["max_abs_err"] for m in flash + [main_f]),
+        "launches": rg["launches"]["flash_attention"]
+        + fam["vision"]["launches"]["flash_attention"],
+        "launches_by_path": {
+            RG_ARCH: rg["launches"]["flash_attention"],
+            VISION_ARCH: fam["vision"]["launches"]["flash_attention"]},
+        "max_abs_err": max(m["max_abs_err"]
+                           for m in flash + [main_f, main_v]),
         "ms": head["ms"], "kernel_ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -2275,7 +2660,9 @@ def main() -> int:
         "band_rel_err_vs_f32": head["band_rel_err_vs_f32"],
         "long": {k: long_[k] for k in bf16_keys},
         "gqa_f32": {k: gqa[k] for k in keys},
+        "vision_mha": {k: vision[k] for k in bf16_keys},
         "main_path": {k: main_f[k] for k in bf16_keys},
+        "main_path_vision": {k: main_v[k] for k in bf16_keys},
         "serve": dict(rg["times"], device=rg["busy"],
                       peak_gb=rg["peak_gb"]),
     })
@@ -2322,6 +2709,7 @@ def main() -> int:
         "pipeline": {"stages": piped["stats"]["stages"],
                      "db_entries": piped["stats"]["db_entries"],
                      "seconds": piped["times"], "c2_ranks": piped["ranks"]}}))
+    log("[families] " + json.dumps({"families": fam}))
     log("[train] " + json.dumps({"train": trained}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -2,10 +2,15 @@
 model's recurrent caches — on the card by default
 (:func:`repro_torch.device.get_device`).
 
-Usage:
+Vision configs get a zero image prefix and encoder–decoder configs zero
+frames (and a zero encoder output at every decode step), as the JAX
+package's ``generate`` gives them.
+
+Usage (the reduced config of ``--arch``, random weights):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
       --prompt "ip.src|1.1.1.1" --max-new 32
-  REPRO_TORCH_DEVICE=cpu PYTHONPATH=src python -m repro_torch.launch.serve
+  REPRO_TORCH_DEVICE=cpu PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite-moe-3b-a800m
 """
 from __future__ import annotations
 
@@ -24,18 +29,29 @@ from ..models import decode_step, init_params, prefill
 def generate(cfg, params, prompts: list[str], max_new: int = 32,
              s_max: int = 256, temperature: float = 0.0, seed: int = 0):
     """Batched greedy/temperature sampling on the parameters' device;
-    prompts are left-padded with token 0 to the longest."""
+    prompts are left-padded with token 0 to the longest.  Decode
+    positions continue after the prompt and, for vision configs, after
+    the image prefix."""
     dev = params["embed"].device
     toks = [np.minimum(T.encode(p), cfg.vocab - 1) for p in prompts]
     max_len = max(t.shape[0] for t in toks)
     batch = np.full((len(toks), max_len), 0, np.int32)
     for i, t in enumerate(toks):
         batch[i, -t.shape[0]:] = t      # left-pad
-    logits, caches = prefill(params, {"tokens": torch.from_numpy(batch)
-                                      .to(dev)}, cfg, s_max=s_max)
+    n, D = len(toks), cfg.d_model
+    pb = {"tokens": torch.from_numpy(batch).to(dev)}
+    if cfg.frontend == "vision":
+        pb["img_embeds"] = torch.zeros((n, cfg.n_img_tokens, D),
+                                       dtype=torch.float32, device=dev)
+    enc_zeros = None
+    if cfg.is_encdec:
+        pb["frames"] = torch.zeros((n, cfg.encoder_seq, D),
+                                   dtype=torch.float32, device=dev)
+        enc_zeros = torch.zeros_like(pb["frames"])
+    logits, caches = prefill(params, pb, cfg, s_max=s_max)
     gen = torch.Generator(device=dev).manual_seed(seed)
     out_tokens = [[] for _ in prompts]
-    pos = max_len
+    pos = max_len + (cfg.n_img_tokens if cfg.frontend == "vision" else 0)
     for _ in range(max_new):
         last = logits[:, -1]
         if temperature > 0:
@@ -48,6 +64,8 @@ def generate(cfg, params, prompts: list[str], max_new: int = 32,
         db = {"tokens": nxt[:, None].to(torch.int32),
               "positions": torch.full((len(prompts), 1), pos,
                                       dtype=torch.int32, device=dev)}
+        if enc_zeros is not None:
+            db["enc_out"] = enc_zeros   # a zero encoder output every step
         logits, caches = decode_step(params, caches, db, cfg)
         pos += 1
     return [T.decode(np.asarray(t)) for t in out_tokens]

@@ -1,6 +1,6 @@
-"""repro_torch.models — the JAX package's model zoo on PyTorch, one
-family at a time (RWKV-6 so far)."""
-from . import blocks, layers, model
+"""repro_torch.models — the JAX package's model zoo on PyTorch: every
+family of its registry."""
+from . import blocks, inputs, layers, model
 from .config import (ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K,
                      TRAIN_4K, ModelConfig, MoEConfig, ShapeConfig,
                      shape_by_name)
@@ -14,5 +14,5 @@ __all__ = [
     "init_params", "abstract_params", "forward", "logits_from_hidden",
     "loss_fn", "prefill",
     "decode_step", "init_cache", "params_from_jax", "layers", "blocks",
-    "model",
+    "model", "inputs",
 ]

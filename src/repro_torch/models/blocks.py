@@ -1,6 +1,7 @@
 """Model blocks with init + apply, as the JAX package's ``models/blocks.py``
 has them: the attention block (global and sliding-window, with a ring
-cache), the SwiGLU MLP, the RG-LRU recurrent block (Griffin /
+cache), encoder–decoder cross-attention, the SwiGLU MLP, the
+mixture-of-experts MLP, the RG-LRU recurrent block (Griffin /
 recurrentgemma) and the RWKV-6 block (Finch).
 
 Every block follows the same contract::
@@ -10,7 +11,8 @@ Every block follows the same contract::
 
 ``gen`` is a ``torch.Generator``; parameters are made on its device and
 stored float32, and cast to ``cfg.dtype`` at use (``_c``).  ``ctx``
-carries positions, the mode and the layer's decode cache.  Caches:
+carries positions, the mode, the layer's decode cache and, for
+encoder–decoder models, the encoder output and its positions.  Caches:
 
 * attention — (B, S_alloc, KV, Dh) K and V rings, the absolute position
   of every slot (-1 = empty) and the next write index (a Python int);
@@ -33,7 +35,7 @@ import torch.nn.functional as F
 from ..kernels.rglru import rglru_scan
 from ..kernels.wkv6 import wkv6
 from . import layers as L
-from .config import ModelConfig
+from .config import ModelConfig, MoEConfig
 
 RWKV_IMPLS = ("scan", "chunked", "pallas")
 
@@ -51,6 +53,8 @@ class Ctx:
     mode: str = "train"               # train | prefill | decode
     # this layer's cache (decode)
     cache: Optional[Union["AttnCache", "RGLRUCache", "RWKVCache"]] = None
+    enc_out: Optional[torch.Tensor] = None   # encoder output (cross-attn)
+    enc_pos: Optional[torch.Tensor] = None
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -189,8 +193,35 @@ def apply_attn(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig,
     return x + out.reshape(B, S, -1) @ _c(p["wo"], cfg), new_cache
 
 
+def apply_cross_attn(p: dict, x: torch.Tensor, ctx: Ctx,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """Encoder–decoder cross-attention (whisper), pre-norm, residual out.
+    K and V are recomputed from ``ctx.enc_out`` at every call (no cache),
+    and the block's biases are not applied, as in the JAX package.  The
+    attention is naive while the encoder output fits one
+    ``attention_chunk``, else ``cfg.attention_impl``."""
+    B, S, _ = x.shape
+    H, KV = cfg.phys_heads, cfg.phys_kv_heads
+    Dh = cfg.resolved_head_dim
+    h = L.rms_norm(x, _c(p["ln"], cfg), cfg.norm_eps)
+    q = (h @ _c(p["wq"], cfg)).reshape(B, S, H, Dh)
+    enc = ctx.enc_out
+    k = (enc @ _c(p["wk"], cfg)).reshape(B, enc.shape[1], KV, Dh)
+    v = (enc @ _c(p["wv"], cfg)).reshape(B, enc.shape[1], KV, Dh)
+    kv_map = head_kv_map(cfg, x.device) \
+        if cfg.phys_heads != cfg.n_heads else None
+    impl = "naive" if enc.shape[1] <= cfg.attention_chunk \
+        else cfg.attention_impl
+    out = L.attention(q, k, v, ctx.positions, ctx.enc_pos, causal=False,
+                      impl=impl, chunk=cfg.attention_chunk, kv_map=kv_map)
+    hm = head_mask(cfg, out.dtype, x.device)
+    if hm is not None:
+        out = out * hm[None, None, :, None]
+    return x + out.reshape(B, S, -1) @ _c(p["wo"], cfg)
+
+
 # =============================================================================
-# MLP
+# MLP / MoE
 # =============================================================================
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -206,6 +237,104 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator) -> dict:
 def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = L.rms_norm(x, _c(p["ln"], cfg), cfg.norm_eps)
     return x + L.swiglu(h, _c(p["w_gate"], cfg), _c(p["w_up"], cfg),
+                        _c(p["w_down"], cfg))
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    m = cfg.moe
+    D, E, F_ = cfg.d_model, m.n_experts, m.d_expert
+    return {
+        "ln": torch.zeros((D,), dtype=torch.float32, device=gen.device),
+        "router": _dense_init(gen, (D, E)),
+        "w_gate": _dense_init(gen, (E, D, F_)),
+        "w_up": _dense_init(gen, (E, D, F_)),
+        "w_down": _dense_init(gen, (E, F_, D)),
+    }
+
+
+def moe_capacity(m: MoEConfig, seq_len: int) -> int:
+    """Expert slots a sequence: capacity_factor · S · k / E, rounded up
+    to a multiple of 8, at least 8."""
+    c = int(m.capacity_factor * seq_len * m.top_k / m.n_experts)
+    return max((c + 7) // 8 * 8, 8)
+
+
+def _token_choice_dispatch(probs: torch.Tensor, k: int, capacity: int):
+    """Sort-based token-choice routing, per sequence, batched.
+
+    probs: (B, T, E).  Returns (slot, keep, gate), each (B, T·k) over the
+    flattened (token, choice) pairs: slot = expert·C + min(rank, C−1),
+    rank the pair's place among the sequence's pairs of its expert in
+    flat order (a stable argsort), keep = rank < C, gate = the top-k
+    probability renormalized by the top-k sum."""
+    b, t, e = probs.shape
+    gate_vals, expert_ids = torch.topk(probs, k, dim=-1)      # (B, T, k)
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(-1, keepdim=True), 1e-9)
+    flat_e = expert_ids.reshape(b, t * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    counts = torch.zeros((b, e), dtype=flat_e.dtype, device=probs.device
+                         ).scatter_add_(1, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, dim=1) - counts             # (B, E)
+    ranks_sorted = torch.arange(t * k, device=probs.device) - \
+        torch.gather(starts, 1, sorted_e)
+    ranks = torch.empty_like(ranks_sorted).scatter_(1, order, ranks_sorted)
+    keep = ranks < capacity
+    slot = flat_e * capacity + torch.clamp_max(ranks, capacity - 1)
+    return slot, keep, gate_vals.reshape(b, t * k)
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Mixture-of-experts FFN with C = :func:`moe_capacity` slots an
+    expert and sequence; router logits and softmax in float32.
+
+    ``token_choice``: each token's top-k experts
+    (:func:`_token_choice_dispatch`); a pair past its expert's capacity
+    is dropped (scattered into one spare row that is sliced off, and
+    weighted 0 in the combine).  ``expert_choice``: each expert takes its
+    top-C tokens, weighted by their probabilities.  The combine sums the
+    weighted expert outputs back onto their tokens with ``index_add``.
+    Every sequence routes on its own, as the JAX package's vmap does;
+    here the batch is flattened into the row indices."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, k = m.n_experts, m.top_k
+    C = moe_capacity(m, S)
+    dev = x.device
+    h = L.rms_norm(x, _c(p["ln"], cfg), cfg.norm_eps)          # (B, S, D)
+    logits = h.to(torch.float32) @ p["router"].to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                     # (B, S, E)
+    h_rows = h.reshape(B * S, D)
+    seq = torch.arange(B, device=dev)[:, None]
+    if m.router == "expert_choice":
+        g, idx = torch.topk(probs.transpose(1, 2), C, dim=-1)  # (B, E, C)
+        rows = (seq[:, :, None] * S + idx).reshape(-1)
+        ye = _expert_ffn(p, h_rows.index_select(0, rows).reshape(B, E, C, D),
+                         cfg)
+        contrib = (ye * g[..., None].to(ye.dtype)).reshape(B * E * C, D)
+    else:
+        slot, keep, gate = _token_choice_dispatch(probs, k, C)
+        rows = (seq * S + torch.arange(S, device=dev).repeat_interleave(k)
+                ).reshape(-1)                                 # (B·S·k,)
+        base = seq * (E * C)
+        safe = torch.where(keep, base + slot, B * E * C).reshape(-1)
+        xe = h.new_zeros((B * E * C + 1, D)).index_copy(
+            0, safe, h_rows.index_select(0, rows))
+        ye = _expert_ffn(p, xe[:B * E * C].reshape(B, E, C, D), cfg)
+        contrib = ye.reshape(B * E * C, D).index_select(
+            0, (base + torch.clamp_max(slot, E * C - 1)).reshape(-1))
+        contrib = contrib * (gate * keep).to(contrib.dtype).reshape(-1, 1)
+    out = torch.zeros((B * S, D), dtype=contrib.dtype, device=dev
+                      ).index_add(0, rows, contrib)
+    return x + out.reshape(B, S, D).to(x.dtype)
+
+
+def _expert_ffn(p: dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(B, E, C, D) → (B, E, C, D): every expert's SwiGLU over its slots."""
+    g = torch.einsum("becd,edf->becf", xe, _c(p["w_gate"], cfg))
+    u = torch.einsum("becd,edf->becf", xe, _c(p["w_up"], cfg))
+    return torch.einsum("becf,efd->becd", F.silu(g) * u,
                         _c(p["w_down"], cfg))
 
 

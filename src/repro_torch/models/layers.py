@@ -207,6 +207,14 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """Two-layer MLP with biases and the tanh-approximated GELU (JAX's
+    ``jax.nn.gelu`` default).  No model calls it, as in the JAX
+    package."""
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_id: int = -100) -> torch.Tensor:
     """Token-mean CE. logits: (B,S,V) any float dtype; labels: (B,S)."""

@@ -1,22 +1,32 @@
 """Model assembly: init, forward, prefill/decode — the JAX package's
-``models/model.py`` on PyTorch, for the block types the port has:
-global and sliding-window attention with a SwiGLU MLP (``A``, ``L``),
-RG-LRU with a SwiGLU MLP (``R``) and RWKV-6 (``W``).  MoE,
-encoder–decoder and vision prefixes raise ``NotImplementedError``.
+``models/model.py`` on PyTorch, for every family of its registry: global
+and sliding-window attention (``A``, ``L``) with a SwiGLU or a
+mixture-of-experts MLP, encoder–decoder cross-attention and a vision
+prefix, RG-LRU with a SwiGLU MLP (``R``) and RWKV-6 (``W``).  An unknown
+block type raises ``NotImplementedError``.
 
 Parameters are a dict: ``embed`` (V, D), ``final_norm`` (D,), ``head``
-(D, V) unless tied, and ``layers``, one dict per layer (``{"attn": ...,
-"mlp": ...}``, ``{"rglru": ..., "mlp": ...}`` or ``{"rwkv": ...}``) —
-the JAX package's layer groups stacked for ``lax.scan`` become a list
-walked by a Python loop.  Decode caches are a list with one entry per
-layer, likewise.
+(D, V) unless tied, ``layers``, one dict per layer (``{"attn": ...,
+"mlp": ...}`` with ``"cross"`` in an encoder–decoder, ``{"rglru": ...,
+"mlp": ...}`` or ``{"rwkv": ...}``), and where the config has them
+``encoder`` (``{"layers": [...], "final_norm": ...}``) and ``img_proj``
+(D, D) — the JAX package's layer groups stacked for ``lax.scan`` become
+lists walked by a Python loop.  Decode caches are a list with one entry
+per decoder layer, likewise; cross-attention keeps no cache.
+
+Inputs beside ``tokens`` (see :mod:`repro_torch.models.inputs`):
+``img_embeds`` (B, n_img_tokens, D), projected and put before the
+tokens, then dropped before the head; ``frames`` (B, encoder_seq, D),
+run through the non-causal encoder (:func:`_encode`); or, in decode,
+``enc_out``, an encoder output given as it is.
 
 Modes:
 * ``train``   — full-sequence forward; :func:`loss_fn` adds the
   next-token cross-entropy.  ``cfg.remat`` "block" (and
   "block_save_coll", which differs from it only in which tensor-parallel
   collective outputs it keeps, none on one device) recomputes each layer
-  in the backward (``torch.utils.checkpoint``).
+  in the backward (``torch.utils.checkpoint``); the encoder's layers
+  only under "block", as in the JAX package.
 * ``prefill`` — full-sequence forward building decode caches.
 * ``decode``  — single-token step consuming/updating caches.
 """
@@ -35,14 +45,13 @@ REMAT_BLOCK = ("block", "block_save_coll")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port has no blocks for."""
+    """Raise ``NotImplementedError`` for a block type the port has no
+    block for."""
     other = sorted(set(cfg.layer_types()) - set(BLOCK_TYPES))
-    if other or cfg.moe is not None or cfg.is_encdec or cfg.frontend:
+    if other:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs block types {BLOCK_TYPES} with a "
-            f"dense MLP and a text-only decoder; this config has unknown "
-            f"block types {other}, moe={cfg.moe is not None}, encoder "
-            f"layers {cfg.encoder_layers}, frontend {cfg.frontend!r}")
+            f"{cfg.name}: the port runs block types {BLOCK_TYPES}; this "
+            f"config has unknown block types {other}")
 
 
 # =============================================================================
@@ -51,7 +60,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _init_layer(ltype: str, cfg: ModelConfig, gen: torch.Generator) -> dict:
     if ltype in (ATTN, LOCAL_ATTN):
-        return {"attn": B.init_attn(cfg, gen), "mlp": B.init_mlp(cfg, gen)}
+        p = {"attn": B.init_attn(cfg, gen)}
+        if cfg.cross_attention:
+            p["cross"] = B.init_attn(cfg, gen)
+        p["mlp"] = B.init_moe(cfg, gen) if cfg.moe else B.init_mlp(cfg, gen)
+        return p
     if ltype == RGLRU:
         return {"rglru": B.init_rglru(cfg, gen), "mlp": B.init_mlp(cfg, gen)}
     if ltype == RWKV:
@@ -72,6 +85,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
         params["head"] = torch.randn((D, V), generator=gen, device=dev,
                                      dtype=torch.float32).mul_(D ** -0.5)
     params["layers"] = [_init_layer(lt, cfg, gen) for lt in cfg.layer_types()]
+    if cfg.is_encdec:
+        # the encoder: the decoder's dims, non-causal, SwiGLU MLPs
+        params["encoder"] = {
+            "layers": [{"attn": B.init_attn(cfg, gen),
+                        "mlp": B.init_mlp(cfg, gen)}
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": torch.zeros((D,), dtype=torch.float32, device=dev),
+        }
+    if cfg.frontend == "vision":
+        # stub projection from precomputed patch embeddings to d_model
+        params["img_proj"] = torch.randn((D, D), generator=gen, device=dev,
+                                         dtype=torch.float32).mul_(D ** -0.5)
     return params
 
 
@@ -99,6 +124,10 @@ def _apply_layer(ltype: str, p: dict, x: torch.Tensor, ctx: B.Ctx,
     if ltype in (ATTN, LOCAL_ATTN):
         window = cfg.window if ltype == LOCAL_ATTN else 0
         x, cache = B.apply_attn(p["attn"], x, ctx, cfg, window=window)
+        if cfg.cross_attention:
+            x = B.apply_cross_attn(p["cross"], x, ctx, cfg)
+        if cfg.moe:
+            return B.apply_moe(p["mlp"], x, cfg), cache
         return B.apply_mlp(p["mlp"], x, cfg), cache
     if ltype == RGLRU:
         x, cache = B.apply_rglru(p["rglru"], x, ctx, cfg)
@@ -137,7 +166,8 @@ def _run_layers(params, x, ctx: B.Ctx, cfg: ModelConfig, caches=None):
     remat = ctx.mode == "train" and cfg.remat in REMAT_BLOCK
     for i, (lt, lp) in enumerate(zip(cfg.layer_types(), params["layers"])):
         sub_ctx = B.Ctx(ctx.positions, ctx.mode,
-                        None if caches is None else caches[i])
+                        None if caches is None else caches[i],
+                        ctx.enc_out, ctx.enc_pos)
         if remat:
             x, c = checkpoint(_apply_layer, lt, lp, x, sub_ctx, cfg,
                               use_reentrant=False)
@@ -147,25 +177,79 @@ def _run_layers(params, x, ctx: B.Ctx, cfg: ModelConfig, caches=None):
     return x, (None if all(c is None for c in new_caches) else new_caches)
 
 
-def _embed_inputs(params, batch: dict, cfg: ModelConfig):
-    """Token embedding and positions. Returns (x, positions)."""
+def _encode(params, frames: torch.Tensor, cfg: ModelConfig,
+            mode: str = "train") -> torch.Tensor:
+    """Whisper-style encoder over stub frame embeddings: non-causal
+    self-attention (naive) and a SwiGLU MLP a layer, then the encoder's
+    final norm.  In train mode with ``cfg.remat == "block"`` each layer
+    is recomputed in the backward."""
+    x = frames.to(B.compute_dtype(cfg))
+    pos = torch.arange(x.shape[1], dtype=torch.int32,
+                       device=x.device).expand(x.shape[:2])
+    kv_map = B.head_kv_map(cfg, x.device) \
+        if cfg.phys_heads != cfg.n_heads else None
+    hm = B.head_mask(cfg, x.dtype, x.device)
+
+    def body(x, lp):
+        h = L.rms_norm(x, B._c(lp["attn"]["ln"], cfg), cfg.norm_eps)
+        q, k, v = B._qkv(lp["attn"], h, cfg)
+        out = L.attention(q, k, v, pos, pos, causal=False, impl="naive",
+                          kv_map=kv_map)
+        if hm is not None:
+            out = out * hm[None, None, :, None]
+        x = x + out.reshape(*x.shape[:2], -1) @ B._c(lp["attn"]["wo"], cfg)
+        return B.apply_mlp(lp["mlp"], x, cfg)
+
+    remat = mode == "train" and cfg.remat == "block"
+    for lp in params["encoder"]["layers"]:
+        x = checkpoint(body, x, lp, use_reentrant=False) if remat \
+            else body(x, lp)
+    return L.rms_norm(x, params["encoder"]["final_norm"].to(x.dtype),
+                      cfg.norm_eps)
+
+
+def _embed_inputs(params, batch: dict, cfg: ModelConfig, mode: str):
+    """Token embedding and modality prefixes.  Returns (x, positions,
+    enc_out, enc_pos, offset): ``offset`` image-prefix rows lead x, and
+    given decode positions move past them."""
     tokens = batch["tokens"]
-    x = F.embedding(tokens, params["embed"]).to(B.compute_dtype(cfg))
+    dt = B.compute_dtype(cfg)
+    x = F.embedding(tokens, params["embed"]).to(dt)
     x = x * (cfg.d_model ** 0.5)
+    offset = 0
+    enc_out = enc_pos = None
+    if cfg.frontend == "vision" and "img_embeds" in batch:
+        img = batch["img_embeds"].to(dt) @ params["img_proj"].to(dt)
+        x = torch.cat([img, x], dim=1)
+        offset = img.shape[1]
+    if cfg.is_encdec and "frames" in batch:
+        enc_out = _encode(params, batch["frames"], cfg, mode)
+    elif cfg.is_encdec and "enc_out" in batch:
+        enc_out = batch["enc_out"].to(dt)     # decode: the encoder ran once
+    if enc_out is not None:
+        enc_pos = torch.arange(enc_out.shape[1], dtype=torch.int32,
+                               device=x.device).expand(enc_out.shape[:2])
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device).expand(x.shape[:2])
-    return x, positions
+    elif offset:
+        prefix = torch.arange(offset, dtype=positions.dtype,
+                              device=x.device).expand(x.shape[0], offset)
+        positions = torch.cat([prefix, positions + offset], dim=1)
+    return x, positions, enc_out, enc_pos, offset
 
 
 def forward(params, batch: dict, cfg: ModelConfig, mode: str = "train",
             caches=None):
-    """Returns (final hidden states, new_caches)."""
-    x, positions = _embed_inputs(params, batch, cfg)
-    ctx = B.Ctx(positions, mode)
+    """Returns (final hidden states of the token positions, new_caches)."""
+    x, positions, enc_out, enc_pos, offset = _embed_inputs(params, batch,
+                                                           cfg, mode)
+    ctx = B.Ctx(positions, mode, None, enc_out, enc_pos)
     x, new_caches = _run_layers(params, x, ctx, cfg, caches)
     x = L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+    if offset:  # drop the modality prefix before the LM head
+        x = x[:, offset:]
     return x, new_caches
 
 

@@ -40,7 +40,7 @@ from repro_torch.kernels import flash_attention, flash_attention_ref, ops, \
     spgemm_sel, spgemm_sel_ref, spmm_ell, spmm_ell_ref, spmv_ell, \
     spmv_ell_ref, wkv6, wkv6_ref
 from repro_torch.kernels import spmm as kspmm
-from repro_torch.models import init_params, prefill
+from repro_torch.models import blocks, init_params, layers, model, prefill
 
 # the module (the package namespace's ``segsum`` is the function)
 ksegsum = importlib.import_module("repro_torch.kernels.segsum")
@@ -337,6 +337,20 @@ def test_flash_attention_bf16_padded_head_dims(card, Dh):
     check_attention(q, k, v, causal=False, window=24)
 
 
+def test_flash_attention_bf16_mha_head_dim_96(card):
+    """phi-3-vision's prefill shape in small: one query head a kv head
+    (each block one head of 128 positions) at Dh = 96, which the
+    tensor-core kernel pads to 128 in shared memory."""
+    q, k, v = attn_case(2, 256, 256, 8, 8, 96, torch.bfloat16, seed=96,
+                        dev=card)
+    check_attention(q, k, v, causal=True, window=0)
+    before = ops.kernel_launches()["flash_attention"]
+    got = flash_attention(q, k, v, causal=True)
+    assert ops.kernel_launches()["flash_attention"] == before + 1
+    torch.testing.assert_close(got.float(), flash_attention_ref(
+        q, k, v, True, 0).float(), rtol=2e-2, atol=2e-2)
+
+
 def test_flash_attention_unaligned_q(card):
     """A bf16 q view that is not 16-byte aligned takes the kernel's
     element-wise Q copy and gives the contiguous q's result exactly."""
@@ -428,6 +442,48 @@ def test_recurrentgemma_prefill_on_card_matches_cpu(card):
                 torch.testing.assert_close(g.cpu(), x, **WKV_TOL)
             else:
                 assert g == x
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "qwen3-moe-235b-a22b"])
+def test_moe_prefill_on_card_matches_cpu(card, arch):
+    """A MoE smoke prefill (attention_impl="pallas") on the card against
+    the same call on the CPU: logits and caches within WKV_TOL, layer 0's
+    routing (the experts of every (token, choice) pair) equal.  qwen3's
+    GQA reaches flash_attention once a layer; granite's one kv head of 4
+    too."""
+    cfg = dataclasses.replace(smoke_config(arch), attention_impl="pallas")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 32)).astype(np.int32))
+    cpu_logits, cpu_caches = prefill(params, {"tokens": toks}, cfg, 64)
+    dev_params = to_device(params, card)
+    before = ops.kernel_launches()["flash_attention"]
+    logits, caches = prefill(dev_params, {"tokens": toks.to(card)}, cfg, 64)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["flash_attention"] - before == cfg.n_layers
+    torch.testing.assert_close(logits.cpu(), cpu_logits, **WKV_TOL)
+    for got, want in zip(caches, cpu_caches):
+        for g, x in zip(got, want):
+            if isinstance(x, torch.Tensor):
+                torch.testing.assert_close(g.cpu(), x, **WKV_TOL)
+            else:
+                assert g == x
+
+    def experts(p, t):
+        x, *_ = model._embed_inputs(p, {"tokens": t}, cfg, "prefill")
+        mlp = p["layers"][0]["mlp"]
+        h = layers.rms_norm(x, mlp["ln"], cfg.norm_eps)
+        probs = torch.softmax(h @ mlp["router"], dim=-1)
+        C = blocks.moe_capacity(cfg.moe, t.shape[1])
+        slot, keep, _ = blocks._token_choice_dispatch(probs, cfg.moe.top_k,
+                                                      C)
+        return (slot // C).cpu(), keep.cpu()
+
+    (e_card, k_card), (e_cpu, k_cpu) = experts(dev_params, toks.to(card)), \
+        experts(params, toks)
+    assert torch.equal(e_card, e_cpu) and torch.equal(k_card, k_cpu)
+    assert bool(k_cpu.all())
 
 
 # ---------------------------------------------------------------------------

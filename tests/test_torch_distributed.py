@@ -277,23 +277,33 @@ def test_param_specs_match_jax(arch, shape, axes, profile):
     assert S.param_specs(jparams, mesh, profile) == want
     assert S.batch_axes(mesh, profile) == jSH.batch_axes(mesh, profile)
     cfg = smoke_config(arch)
-    try:
-        PM.check_supported(cfg)
-    except NotImplementedError:
-        return                    # the port builds no such model
+    PM.check_supported(cfg)
     mine = S.param_specs(abstract_params(cfg), mesh, profile)
     period = len(cfg.pattern)
     n_grouped = cfg.n_layers // period * period
+
+    def unstacked(group):
+        """A stacked JAX layer group's specs without the leading dim (MoE
+        expert tensors keep theirs: the rules read E at shape[-3])."""
+        return {b: {n: s[1:] for n, s in sub.items()}
+                for b, sub in group.items()}
+
     for li, layer in enumerate(mine["layers"]):
         if li < n_grouped:
-            jl = want["groups"][f"slot{li % period}"]
-            jl = {b: {n: s[1:] for n, s in sub.items()}
-                  for b, sub in jl.items()}
+            jl = unstacked(want["groups"][f"slot{li % period}"])
         else:
             jl = want["tail"][f"layer{li - n_grouped}"]
         assert layer == jl, li
+    if cfg.is_encdec:
+        enc = want["encoder"]
+        assert len(mine["encoder"]["layers"]) == cfg.encoder_layers
+        for li, layer in enumerate(mine["encoder"]["layers"]):
+            assert layer == unstacked(enc["layers"]), ("encoder", li)
+        assert mine["encoder"]["final_norm"] == enc["final_norm"]
+    if cfg.moe is not None:
+        assert len(mine["layers"][0]["mlp"]["w_gate"]) == 3
     for k in mine:
-        if k != "layers":
+        if k not in ("layers", "encoder"):
             assert mine[k] == want[k], k
 
 

@@ -2,7 +2,8 @@
 configs in float32, on the same weights (the JAX tree carried across by
 ``params_from_jax``) and the same numpy inputs: RWKV-6, and the
 recurrentgemma hybrid (RG-LRU + local attention) with the dense
-attention families.
+attention families (the MoE, encoder-decoder and vision families are in
+``tests/test_torch_families.py``).
 
 The JAX package's ``*_impl="pallas"`` runs its Pallas kernels in
 interpret mode; the port's runs the ``wkv6``, ``rglru_scan`` and
@@ -195,15 +196,22 @@ def test_params_from_jax_unstacks_layers(weights):
     np.testing.assert_array_equal(p["head"].numpy(), tree["head"])
 
 
-RAISING = ("whisper_large_v3", "granite_moe_3b_a800m", "qwen3_moe_235b_a22b",
-            "phi_3_vision_4_2b")
+# the families the port added last (tests/test_torch_families.py)
+OTHER = ("whisper_large_v3", "granite_moe_3b_a800m", "qwen3_moe_235b_a22b",
+         "phi_3_vision_4_2b")
 
 
-@pytest.mark.parametrize("arch", RAISING)
+@pytest.mark.parametrize("arch", OTHER)
 def test_other_families_raise(arch):
+    """The MoE, encoder-decoder and vision families build; only an
+    unknown block type raises."""
     cfg = pconfigs.smoke_config(arch)
+    PM.check_supported(cfg)
+    params = PM.init_params(cfg, torch.Generator().manual_seed(0))
+    assert len(params["layers"]) == cfg.n_layers
     with pytest.raises(NotImplementedError):
-        PM.init_params(cfg, torch.Generator().manual_seed(0))
+        PM.init_params(dataclasses.replace(cfg, pattern="X"),
+                       torch.Generator().manual_seed(0))
 
 
 def test_unrolled_impl_raises(weights):
@@ -378,14 +386,14 @@ PERTURB = ("ln", "final_norm", "conv_b", "bq", "bk", "bv")
 
 
 def test_supported_families():
-    """Exactly the MoE, encoder-decoder and vision families still raise."""
+    """Every config of the registry is supported, smoke and full; a
+    block type the port has no block for raises."""
     for arch in jconfigs.ARCHS:
-        cfg = pconfigs.smoke_config(arch)
-        if arch in RAISING:
-            with pytest.raises(NotImplementedError):
-                PM.check_supported(cfg)
-        else:
-            PM.check_supported(cfg)
+        PM.check_supported(pconfigs.smoke_config(arch))
+        PM.check_supported(pconfigs.get_config(arch))
+        with pytest.raises(NotImplementedError):
+            PM.check_supported(dataclasses.replace(
+                pconfigs.smoke_config(arch), pattern="AX"))
 
 
 @functools.cache

@@ -53,7 +53,8 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4          # atol x max|g| of the leaf
 ADAM_TOL = dict(rtol=1e-6, atol=1e-9)
 STEP_PARAM_ATOL, STEP_PARAM_SHARE = 2e-6, 0.999
 SELF_TOL = dict(rtol=1e-6, atol=1e-6)
-FAMILIES = ("rwkv6-1.6b", "recurrentgemma-9b", "h2o-danube-1.8b")
+FAMILIES = ("rwkv6-1.6b", "recurrentgemma-9b", "h2o-danube-1.8b",
+            "granite-moe-3b-a800m", "whisper-large-v3")
 B, S = 4, 16
 
 
@@ -77,9 +78,15 @@ def weights(arch):
 
 
 def batch(cfg, seed=0, b=B, s=S):
+    """Tokens and labels, and for an encoder-decoder config normal
+    frames."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_encdec:
+        out["frames"] = rng.normal(0, 1, (b, cfg.encoder_seq, cfg.d_model)
+                                   ).astype(np.float32)
+    return out
 
 
 def pt(np_batch):
