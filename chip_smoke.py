@@ -244,6 +244,34 @@ Phases, each of which must pass (any failure raises, exit code != 0):
     choice) pair equal (capacity factor 4: nothing dropped), one
     ``flash_attention`` launch a layer on the card.
 
+16. The sharded train step and the launch tooling (after phase 14, its
+    state freed).  (a) A one-rank NCCL world over a (1, 1) (data, model)
+    mesh: rwkv6-1.6b at full width and depth, phase 14's seed and
+    batches (B = 8, S = 512), the state placed by ``init_train_state``
+    over the mesh (every leaf a DTensor), 3 steps of ``make_train_step``
+    through the placements path (the gathers, ``constrain``, the
+    gradients reduced in the backward, the in-place AdamW on the
+    shards): losses and
+    gradient norms within phase 14 (b)'s bf16 rtol=1e-2 of phase 14's
+    first 3, no kernel launched, every leaf still a DTensor; step
+    seconds beside phase 14's median (DTensor's host dispatch), peak
+    memory, one more step under ``FlopCounterMode`` and one profiled on
+    the device alone.  (b) ``python -m repro_torch.launch.dryrun`` in a
+    process of its own on the host (after the last timed phase, so that
+    nothing shares the host while the card is timed) for rwkv6-1.6b
+    train_4k and qwen2.5-14b prefill_32k on the single-pod (16, 16) mesh
+    of a fake 256-rank world: each record ``ok``, its ``argument_bytes``
+    equal to
+    the local shard bytes ``param_specs`` implies (parameters, AdamW
+    moments and step, batch); logs FLOPs, collective bytes by kind,
+    ``temp_bytes``, the roofline terms on the H100 constants and each
+    cell's seconds.  (c) The roofline of phase 14's step: the perf
+    model's ``train_cell`` for rwkv6-1.6b at (B = 8, S = 512) on
+    ``MeshDims(1, 1, 1)``, (a)'s counted FLOPs, phase 14's median step
+    against 6·N·T / 989 TFLOP/s, and the card's own bf16 ``torch.matmul``
+    TFLOP/s at 8192³ and device copy GB/s beside 989 TFLOP/s and
+    3.35 TB/s.
+
 Prints each kernel's registers and shared memory (``cudaFuncGetAttributes``
 through each library's ``<lib>_attrs``), the card's name and power limit,
 a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -305,8 +333,12 @@ from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import synth_corpus  # noqa: E402
 from repro_torch.train import (OptConfig, adamw_update,  # noqa: E402
                                compressed_pod_mean, init_train_state)
+from repro_torch.train import sharding  # noqa: E402
+from repro_torch.configs import canonical  # noqa: E402
+from repro_torch.launch import dryrun, perfmodel, roofline  # noqa: E402
+from repro_torch.models.config import shape_by_name  # noqa: E402
 from repro_torch.train.trainer import make_grad_fn, make_train_step  # noqa: E402,E501
-from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import leaves_at, tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
@@ -407,6 +439,11 @@ TRAIN_SMOKE_B, TRAIN_SMOKE_S, TRAIN_SMOKE_LR = 4, 128, 1e-3
 # entries within the near limit (float32: gradients equal to ~1e-6, so
 # updates equal to ~1e-6 lr; bfloat16: to ~1e-2, so ~1e-2 lr)
 TRAIN_PARAM_NEAR = {"float32": (2e-6, 0.999), "bfloat16": (1e-4, 0.99)}
+# phase 16: the sharded steps against phase 14's first ones; the dry runs
+SHARDED_STEPS = 3
+DRYRUN_CELLS = (("rwkv6-1.6b", "train_4k"), ("qwen2.5-14b", "prefill_32k"))
+DRYRUN_TIMEOUT_S = 600
+MATMUL_N, COPY_BYTES = 8192, 1 << 30
 
 
 class SmokeFailure(RuntimeError):
@@ -2449,8 +2486,9 @@ def nccl_one_rank(ref: dict, grads, tmp: str) -> dict:
     return out
 
 
-def train_path(dev: torch.device, ref: dict) -> dict:
-    """Phase 14 on the card; ``ref`` is phase 3's result (its table)."""
+def train_path(dev: torch.device, ref: dict, smi: str) -> dict:
+    """Phase 14 on the card, then phase 16 (a) on its corpus; ``ref`` is
+    phase 3's result (its table)."""
     t_phase = time.perf_counter()
     times = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
@@ -2473,13 +2511,242 @@ def train_path(dev: torch.device, ref: dict) -> dict:
         t0 = time.perf_counter()
         mesh = nccl_one_rank(ref, grads, tmp)
         times["nccl"] = time.perf_counter() - t0
-    del grads
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        sharded = sharded_on_card(dev, pattern, full, tmp, smi)
+        times["sharded_16a"] = time.perf_counter() - t0
     times["phase"] = time.perf_counter() - t_phase
     log("[train] phase 14 seconds: " + json.dumps(
         {k: round(v, 2) for k, v in times.items()}))
     return {"full_width": full, "smoke": {d: r["check"]
                                           for d, r in smoke.items()},
-            "mesh": mesh, "times": times}
+            "mesh": mesh, "sharded": sharded, "times": times}
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the sharded train step and the launch tooling.
+# ---------------------------------------------------------------------------
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def dryrun_cells(out_dir: str) -> dict:
+    """Phase 16 (b)'s dry runs in a process of their own on the host (no
+    card: they count a fake world); each cell's seconds."""
+    script = (
+        "import json, sys, time\n"
+        "from repro_torch.launch import dryrun\n"
+        f"for arch, shape in {list(DRYRUN_CELLS)!r}:\n"
+        "    t0 = time.time()\n"
+        "    dryrun.main(['--arch', arch, '--shape', shape, '--mesh',\n"
+        "                 'single', '--force'])\n"
+        "    print(json.dumps({'arch': arch, 'shape': shape,\n"
+        "                      'seconds': time.time() - t0}), flush=True)\n")
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               REPRO_TORCH_DEVICE="cpu", CUDA_VISIBLE_DEVICES="")
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", script], env=env, cwd=str(root),
+            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"[dryrun] not done in {DRYRUN_TIMEOUT_S} s")
+    with open(os.path.join(out_dir, "dryrun.out"), "w") as f:
+        f.write(proc.stdout)
+    check(proc.returncode == 0, f"[dryrun] exited with {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    return {(d["arch"], d["shape"]): d["seconds"]
+            for d in (json.loads(x) for x in proc.stdout.splitlines()
+                      if x.startswith("{"))}
+
+
+class _StandInMesh:
+    def __init__(self, shape, axes):
+        self.shape = dict(zip(axes, shape))
+        self.axis_names = tuple(axes)
+
+
+def local_shard_bytes(tree, specs, mesh) -> int:
+    """Bytes of a rank's shards of ``tree`` under ``specs`` on ``mesh``
+    (each dim divided by the sizes of the axes its entry names)."""
+    total = 0
+    for t, spec in zip(tree_leaves(tree), leaves_at(specs, tree)):
+        n = t.numel()
+        for ax in spec:
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                if a is not None:
+                    n //= mesh.shape[a]
+        total += n * t.element_size()
+    return total
+
+
+def expected_argument_bytes(arch: str, shape_name: str) -> int:
+    """The local shard bytes ``param_specs`` implies on the (16, 16)
+    mesh: parameters (and for training AdamW's moments and its int32
+    step), plus the batch's rows a rank holds."""
+    cfg = get_config(arch)
+    shape = shape_by_name(shape_name)
+    mesh = _StandInMesh((16, 16), ("data", "model"))
+    params = model.abstract_params(cfg)
+    shard = local_shard_bytes(params, sharding.param_specs(params, mesh),
+                              mesh)
+    batch = 0
+    for v in inputs.input_specs(cfg, shape).values():
+        n = v.numel() * v.element_size()
+        batch += n // 16 if v.shape[0] % 16 == 0 else n
+    if shape.kind == "train":
+        return 3 * shard + 4 + batch
+    return shard + batch
+
+
+def dryrun_path(smi: str) -> dict:
+    """Phase 16 (b): the dry runs, then their records held."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        seconds = dryrun_cells(tmp)
+    took = time.perf_counter() - t0
+    out = {}
+    for arch, shape in DRYRUN_CELLS:
+        path = os.path.join(dryrun.RESULTS_DIR,
+                            f"{canonical(arch)}__{shape}__single.json")
+        with open(path) as f:
+            rec = json.load(f)
+        check(rec.get("ok") and not rec.get("skipped"),
+              f"[dryrun] {arch} {shape} failed: {rec.get('error')} "
+              f"{rec.get('traceback', '')[-2000:]}")
+        want = expected_argument_bytes(arch, shape)
+        check(rec["memory"]["argument_bytes"] == want,
+              f"[dryrun] {arch} {shape} argument_bytes "
+              f"{rec['memory']['argument_bytes']} != the specs' {want}")
+        terms = roofline.analyze(rec)
+        out[f"{arch} {shape}"] = {
+            "seconds": seconds[(arch, shape)], "lower_s": rec["lower_s"],
+            "compile_s": rec["compile_s"], "flops": rec["flops"],
+            "bytes_accessed": rec["bytes_accessed"],
+            "collective_bytes": rec["collective_bytes"],
+            "collective_calls": rec["collective_calls"],
+            "memory": rec["memory"],
+            "per_device_gib": (rec["memory"]["argument_bytes"]
+                               + rec["memory"]["temp_bytes"]) / 2**30,
+            "roofline": {k: terms[k] for k in (
+                "t_compute_s", "t_memory_s", "t_collective_s", "dominant",
+                "model_flops", "roofline_fraction")}}
+    log(f"[dryrun] {smi}: {took:.1f} s in all: " + json.dumps(out))
+    return out
+
+
+def device_rates(smi: str) -> dict:
+    """The card's own bf16 matmul TFLOP/s at 8192³ and device copy GB/s
+    (CUDA events, after a warm-up)."""
+    n = MATMUL_N
+    a = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    mm_ms = timed_ms(lambda: torch.matmul(a, b), iters=10)
+    del a, b
+    x = torch.empty(COPY_BYTES // 4, device="cuda", dtype=torch.float32)
+    y = torch.empty_like(x)
+    cp_ms = timed_ms(lambda: y.copy_(x), iters=10)
+    del x, y
+    out = {"matmul_bf16_tflops": 2 * n ** 3 / (mm_ms / 1e3) / 1e12,
+           "matmul_ms": mm_ms, "peak_tflops": roofline.PEAK_FLOPS / 1e12,
+           "copy_gbs": 2 * COPY_BYTES / (cp_ms / 1e3) / 1e9,
+           "copy_ms": cp_ms, "peak_gbs": roofline.HBM_BW / 1e9}
+    log(f"[roofline] {smi}: " + json.dumps(out))
+    return out
+
+
+def sharded_on_card(dev, pattern: str, full: dict, tmp: str,
+                    smi: str) -> dict:
+    """Phase 16 (a) (and (c)'s counted FLOPs) in a one-rank NCCL world."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.utils.flop_counter import FlopCounterMode
+    store = dist.FileStore(os.path.join(tmp, "store16"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg = get_config(TRAIN_ARCH)
+        opt = OptConfig(warmup_steps=TRAIN_WARMUP)
+        stream = TokenStream(pattern, seq_len=TRAIN_S, batch=TRAIN_B)
+        torch.cuda.reset_peak_memory_stats()
+        params, state = init_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(0), mesh)
+        step = make_train_step(cfg, opt, mesh)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        losses, norms, step_s = [], [], []
+        ops.reset_launches()
+        for _ in range(SHARDED_STEPS):
+            batch = token_batch(stream, cfg.vocab, dev)
+            ev[0].record()
+            params, state, m = step(params, state, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            step_s.append(ev[0].elapsed_time(ev[1]) / 1e3)
+        launches = ops.kernel_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(all(isinstance(x, DTensor)
+                  for x in tree_leaves((params, state["m"], state["v"]))),
+              "[sharded] the state is not DTensors after the steps")
+        check(not any(launches.values()),
+              f"[sharded] hand-written kernels launched: {launches}")
+        want = np.asarray([full["losses"][:SHARDED_STEPS],
+                           full["grad_norms"][:SHARDED_STEPS]])
+        got = np.asarray([losses, norms])
+        check(np.allclose(got, want, rtol=TRAIN_BF16_RTOL, atol=0),
+              f"[sharded] losses/norms {got.tolist()} vs phase 14 "
+              f"{want.tolist()} beyond rtol={TRAIN_BF16_RTOL}")
+        with FlopCounterMode(display=False) as fc:
+            step(params, state, batch)
+        torch.cuda.synchronize()
+        counted = float(fc.get_total_flops())
+        split, n_kernels = profiled_kernels(
+            lambda: step(params, state, batch), cpu=False)
+        del params, state
+    finally:
+        dist.destroy_process_group()
+    out = {"losses": losses, "grad_norms": norms, "step_s": step_s,
+           "phase14_median_step_s": full["median_step_s"],
+           "host_cost_s": float(np.median(step_s)) - full["median_step_s"],
+           "peak_gb": peak_gb, "counted_flops": counted,
+           "max_rel_vs_phase14": float(np.abs(got / want - 1).max()),
+           "profiled_step": {"device_ms": sum(split.values()),
+                             "device_kernels": n_kernels}}
+    log(f"[sharded] {smi}: " + json.dumps(out))
+    return out
+
+
+def step_roofline(full: dict, sharded: dict, rates: dict, smi: str) -> dict:
+    """Phase 16 (c): phase 14's measured step against the perf model and
+    the 6·N·T model FLOPs at the card's peak."""
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("phase14", TRAIN_S, TRAIN_B, "train")
+    perf = perfmodel.train_cell(cfg, shape, perfmodel.MeshDims(1, 1, 1),
+                                perfmodel.PerfKnobs(grad_accum=1))
+    model_flops = 6.0 * cfg.n_active_params() * TRAIN_B * TRAIN_S
+    median = full["median_step_s"]
+    t_c = perf.flops / roofline.PEAK_FLOPS
+    t_m = perf.hbm_bytes / roofline.HBM_BW
+    out = {"perfmodel_flops": perf.flops, "perfmodel_hbm_bytes":
+           perf.hbm_bytes, "perfmodel_coll_bytes": perf.coll_bytes,
+           "t_compute_s": t_c, "t_memory_s": t_m,
+           "counted_flops": sharded["counted_flops"],
+           "model_flops": model_flops,
+           "model_flops_s": model_flops / roofline.PEAK_FLOPS,
+           "median_step_s": median,
+           "roofline_fraction": model_flops / roofline.PEAK_FLOPS / median,
+           "achieved_tflops": model_flops / median / 1e12,
+           "share_of_card_matmul_rate": model_flops / median / 1e12
+           / rates["matmul_bf16_tflops"]}
+    log(f"[roofline] {smi}: phase 14 step " + json.dumps(out))
+    return out
 
 
 def main() -> int:
@@ -2498,6 +2765,12 @@ def main() -> int:
     ops.build_all()
     log(f"[build] nvcc sm_90a for {sorted(ops.SIGNATURES)} in "
         f"{time.perf_counter() - t0:.1f} s -> {ops.BUILD_DIR}")
+    smi = card_line()
+    return phases(dev, smi, t_start)
+
+
+def phases(dev, smi: str, t_start: float) -> int:
+    """Phases 2-16 after the build."""
 
     window, new_window = kernels_at_window(dev)
     wkv = wkv6_at_shapes(dev)
@@ -2566,17 +2839,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[train] device memory before: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-    trained = train_path(dev, card)
+    trained = train_path(dev, card, smi)
+    rates = device_rates(smi)
+    roof = step_roofline(trained["full_width"], trained["sharded"], rates,
+                         smi)
+    # the host-heavy dry runs after the last timed phase
+    dry = dryrun_path(smi)
 
     for a in ops.kernel_attributes():
         log(f"[attrs] {a['kernel']}: {a['registers']} registers, "
             f"{a['static_smem']} B static + {a['dynamic_smem']} B dynamic "
             f"shared, {a['local_bytes']} B local")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
     rows = []
     for name, spec in KERNELS.items():
         w = window[name]
@@ -2711,6 +2985,8 @@ def main() -> int:
                      "seconds": piped["times"], "c2_ranks": piped["ranks"]}}))
     log("[families] " + json.dumps({"families": fam}))
     log("[train] " + json.dumps({"train": trained}))
+    log("[phase16] " + json.dumps({"card": smi, "dryrun": dry,
+                                   "rates": rates, "roofline": roof}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -17,7 +17,12 @@ Fault-tolerance contract:
 * leaves are saved as whole host arrays (bfloat16 as its 16-bit pattern,
   the manifest naming the dtype) and restore bit for bit onto any
   device: each tensor leaf onto its like's device, or with ``shardings``
-  as a DTensor over ``mesh``;
+  as a DTensor over ``mesh`` (each rank reading the files and keeping
+  its slice);
+* a tree of DTensors (the sharded train step's state) is gathered whole
+  leaf by leaf, a collective every rank of the world takes part in, and
+  written by rank 0 alone: the same files, so a save on several ranks
+  restores on one and the reverse;
 * optimizer and sampler state ride along in the same tree.
 
 ``AsyncCheckpointer`` overlaps serialization with training (one step of
@@ -34,16 +39,46 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..tree import leaves_at, tree_leaves, tree_paths, tree_unflatten
 
 BF16 = "bfloat16"
 
 
+def _is_sharded(tree) -> bool:
+    return any(isinstance(x, DTensor) for x in tree_leaves(tree))
+
+
+def _writes(sharded: bool) -> bool:
+    """Whether this process writes: all callers of a plain tree, rank 0
+    alone of a sharded one."""
+    return not sharded or not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _whole(leaf):
+    """A DTensor gathered whole (collective); anything else as it is."""
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
+def _host_tree(tree, write: bool):
+    """``tree`` with every leaf copied to the host (DTensors gathered
+    whole); on a rank that does not write, the gathers alone (no host
+    copy) and None."""
+    if write:
+        return tree_unflatten(tree, [_to_host(x) for x in tree_leaves(tree)])
+    for x in tree_leaves(tree):
+        if isinstance(x, DTensor):
+            _whole(x.detach())
+    return None
+
+
 def _to_host(leaf):
-    """A host copy of a leaf: tensors as CPU tensors, others as numpy."""
+    """A host copy of a leaf: tensors (DTensors gathered whole) as CPU
+    tensors, others as numpy."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return _whole(leaf.detach()).to("cpu", copy=True)
     return np.array(leaf)
 
 
@@ -64,8 +99,14 @@ def _dtype_name(leaf) -> str:
 
 def save(root: str, step: int, tree: Any, metadata: Optional[dict] = None,
          shard_size: int = 512 * 2**20) -> str:
-    """Atomic checkpoint save. Returns the committed directory."""
+    """Atomic checkpoint save. Returns the committed directory.  A tree
+    with DTensor leaves is gathered on every rank (each must call) and
+    written by rank 0."""
     final = os.path.join(root, f"step_{step:08d}")
+    if _is_sharded(tree):
+        tree = _host_tree(tree, _writes(True))
+        if tree is None:
+            return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -136,8 +177,8 @@ def _restore_leaf(arr: np.ndarray, dtype: str, like, spec, mesh):
     if dtype == BF16:
         t = t.view(torch.bfloat16)
     if spec is not None:
-        from ..train.sharding import distribute
-        return distribute(t.to(mesh.device_mesh.device_type), spec, mesh)
+        from ..train.sharding import shard_tensor
+        return shard_tensor(t.to(mesh.device_mesh.device_type), spec, mesh)
     dev = like.device if like.device.type != "meta" else torch.device("cpu")
     return t.to(dev)
 
@@ -185,10 +226,13 @@ class AsyncCheckpointer:
         self.last_error: Optional[BaseException] = None
 
     def save_async(self, step: int, tree: Any, metadata=None):
+        """Every rank of a sharded tree calls this (the gathers are
+        collective); rank 0 alone writes."""
         self.wait()
         # materialize on host before handing to the writer thread
-        host_tree = tree_unflatten(tree, [_to_host(x)
-                                          for x in tree_leaves(tree)])
+        host_tree = _host_tree(tree, _writes(_is_sharded(tree)))
+        if host_tree is None:
+            return
 
         def work():
             try:

@@ -1,1 +1,2 @@
-"""repro_torch.launch — drivers (serving so far)."""
+"""repro_torch.launch — entry points: serve, train, the mesh, and the dry
+run with its census, perf model, roofline, calibration and hill climb."""

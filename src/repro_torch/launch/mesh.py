@@ -14,10 +14,9 @@ Production shapes, as in the JAX package:
 * single-pod: (16, 16), axes (data, model);
 * multi-pod:  (2, 16, 16), axes (pod, data, model).
 
-They build only in a world of that size.  The JAX package's
-``models/shard_ctx.py`` (sharding constraints on activations inside the
-model) has no counterpart here: the port's model applies no activation
-placement.
+They build only in a world of that size (``launch/dryrun.py`` builds
+them in a ``"fake"`` world).  Activations are placed over a mesh by
+``models/shard_ctx.py``, the JAX package's module of that name.
 """
 from __future__ import annotations
 

@@ -3,19 +3,31 @@
 Modes:
 * ``--smoke`` — the reduced config of ``--arch`` (the per-arch smoke
   family), on the (1, n) smoke mesh;
-* default    — the full config, data-parallel over the mesh of the world
-  the process runs in: one device, or every rank under ``torchrun``
-  (NCCL on the card, gloo with ``REPRO_TORCH_DEVICE=cpu``).
+* default    — the full config over ``world_mesh()``: one device, or
+  every rank under ``torchrun`` (NCCL on the card, gloo with
+  ``REPRO_TORCH_DEVICE=cpu``).
+
+In a ``torch.distributed`` world (``torchrun``, or a process group the
+caller initialized) the state is placed by ``train.sharding.param_specs``
+over the mesh, each layer sliced to the rank's shards as it is made
+(``trainer.init_train_state``: no rank holds the whole float32 tree):
+under ``world_mesh()`` that is FSDP over the world, parameters and AdamW
+moments sharded at rest, each rank's slice of the global batch, the
+sharded train step of ``train.trainer``.  One process outside a world
+trains on its whole state.
 
 Both train on the D4M pipeline's packet-log corpus (synthesized unless
 ``--data`` names files), with checkpoint/restart: ``--ckpt-every``
 saves parameters, optimizer state and the sampler state asynchronously,
 and ``--resume`` continues from the latest checkpoint.  Rank 0 alone
-prints and saves.
+prints and writes; a sharded state is gathered for the save on every
+rank.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
       --steps 12 --seq 512 --batch 8
+  PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \\
+      --arch recurrentgemma-9b --steps 4 --seq 512 --batch 8
   REPRO_TORCH_DEVICE=cpu PYTHONPATH=src python -m repro_torch.launch.train \\
       --smoke --steps 20
 """
@@ -34,8 +46,9 @@ from .. import checkpoint as ckpt
 from ..configs import canonical, get_config, smoke_config
 from ..data import SamplerState, TokenStream
 from ..device import get_device
-from ..train import OptConfig, init_train_state
-from ..train.trainer import make_train_step
+from ..train import OptConfig
+from ..train import sharding as S
+from ..train.trainer import init_train_state, make_train_step
 from .mesh import make_smoke_mesh, world_mesh
 
 
@@ -108,13 +121,22 @@ def _train(args, dev: torch.device, rank: int) -> list:
             dist.barrier()
     stream = TokenStream(data_glob, seq_len=args.seq, batch=args.batch)
 
+    # in a world each rank keeps its shards, sliced layer by layer
     params, opt_state = init_train_state(
-        cfg, torch.Generator(device=dev).manual_seed(0))
+        cfg, torch.Generator(device=dev).manual_seed(0), mesh)
+    sharded = dist.is_initialized()
     step0 = 0
     ckpt_dir = os.path.join(args.workdir, f"ckpt_{canonical(args.arch)}")
     if args.resume and ckpt.latest_step(ckpt_dir) is not None:
+        sampler_like = stream.state.to_dict()
+        shardings = None
+        if sharded:
+            specs = S.param_specs(params, mesh)
+            shardings = (specs, {"m": specs, "v": specs, "step": None},
+                         {k: None for k in sampler_like})
         (params, opt_state, sampler), meta = ckpt.restore(
-            ckpt_dir, (params, opt_state, stream.state.to_dict()))
+            ckpt_dir, (params, opt_state, sampler_like), mesh=mesh,
+            shardings=shardings)
         stream.state = SamplerState.from_dict(
             {k: int(v) for k, v in sampler.items()})
         step0 = meta["step"] + 1
@@ -137,11 +159,21 @@ def _train(args, dev: torch.device, rank: int) -> list:
                   f"gnorm {float(metrics['grad_norm']):8.3f} "
                   f"{time.time()-t0:6.2f}s", flush=True)
         if args.ckpt_every and (step + 1) % args.ckpt_every == 0 and \
-                rank == 0:
+                (rank == 0 or sharded):
             saver.save_async(step, (params, opt_state,
                                     stream.state.to_dict()),
                              {"step": step, "loss": loss})
     saver.wait()
+    if dev.type == "cuda":
+        # each rank's peak device memory, printed by rank 0
+        peak = [torch.cuda.max_memory_allocated(dev) / 1e9]
+        if dist.is_initialized():
+            peak = [None] * dist.get_world_size()
+            dist.all_gather_object(peak, torch.cuda.max_memory_allocated(
+                dev) / 1e9)
+        if rank == 0:
+            print(f"peak GB a rank {[round(p, 2) for p in peak]}",
+                  flush=True)
     if len(losses) >= 10 and rank == 0:
         first, last = np.mean(losses[:3]), np.mean(losses[-3:])
         print(f"loss {first:.3f} → {last:.3f} "

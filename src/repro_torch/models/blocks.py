@@ -36,6 +36,8 @@ from ..kernels.rglru import rglru_scan
 from ..kernels.wkv6 import wkv6
 from . import layers as L
 from .config import ModelConfig, MoEConfig
+from .shard_ctx import (constrain, local_rows, rows_like, run_local,
+                        split_heads, tp_out)
 
 RWKV_IMPLS = ("scan", "chunked", "pallas")
 
@@ -116,8 +118,9 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
         q = q + _c(p["bq"], cfg)
         k = k + _c(p["bk"], cfg)
         v = v + _c(p["bv"], cfg)
-    return (q.reshape(B, S, H, Dh), k.reshape(B, S, KV, Dh),
-            v.reshape(B, S, KV, Dh))
+    # pin the head axes to the model axis
+    return (split_heads(q, H, Dh), split_heads(k, KV, Dh),
+            split_heads(v, KV, Dh))
 
 
 class AttnCache(NamedTuple):
@@ -138,6 +141,25 @@ def init_attn_cache(cfg: ModelConfig, batch: int, s_max: int,
         torch.zeros((batch, s_alloc, KV, Dh), dtype=dt, device=device),
         torch.full((batch, s_alloc), -1, dtype=torch.int32, device=device),
         0)
+
+
+def _write_cache(write, cache: AttnCache, k, v, positions):
+    """``write(k ring, v ring, slot positions, k, v, positions)`` → the
+    new rings and slot positions, on each rank's sequences and heads
+    when sharded (the writes index the ring, which DTensor has no rules
+    for)."""
+    heads, rows = ["batch", None, "model", None], ("batch", None)
+    placements = getattr(cache.k, "placements", ())
+    for axis, p in zip(getattr(getattr(cache.k, "device_mesh", None),
+                               "mesh_dim_names", None) or (), placements):
+        if axis == "model" and p.is_shard():
+            # a ring sharded over model keeps its layout (cache_specs:
+            # the kv heads, or the head dim where they do not divide)
+            heads = ["batch", None, None, None]
+            heads[p.dim] = "model"
+    heads = tuple(heads)
+    return run_local(write, (heads, heads, rows, heads, heads, rows),
+                     (0, 1, 2), cache.k, cache.v, cache.pos, k, v, positions)
 
 
 def apply_attn(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig,
@@ -163,10 +185,14 @@ def apply_attn(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig,
         # the slot JAX's dynamic_update_slice writes at (start clamped so
         # the S new entries fit)
         slot = max(0, min(cache.index % s_alloc, s_alloc - S))
-        kc, vc, pos = cache.k.clone(), cache.v.clone(), cache.pos.clone()
-        kc[:, slot:slot + S] = k
-        vc[:, slot:slot + S] = v
-        pos[:, slot:slot + S] = ctx.positions.to(torch.int32)
+
+        def write(kc, vc, pos, k, v, positions):
+            kc, vc, pos = kc.clone(), vc.clone(), pos.clone()
+            kc[:, slot:slot + S] = k
+            vc[:, slot:slot + S] = v
+            pos[:, slot:slot + S] = positions.to(torch.int32)
+            return kc, vc, pos
+        kc, vc, pos = _write_cache(write, cache, k, v, ctx.positions)
         new_cache = AttnCache(kc, vc, pos, cache.index + S)
         # ring entries carry absolute positions; -1 slots stay masked
         out = L.attention(q, kc, vc, ctx.positions, pos, causal=True,
@@ -180,17 +206,21 @@ def apply_attn(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig,
             cache = ctx.cache
             s_alloc = cache.k.shape[1]
             take = min(s_alloc, S)
-            tail_pos = ctx.positions[:, -take:].to(torch.int32)
-            slots = (tail_pos[0] % s_alloc).long()
-            kc, vc, pos = cache.k.clone(), cache.v.clone(), cache.pos.clone()
-            kc[:, slots] = k[:, -take:]
-            vc[:, slots] = v[:, -take:]
-            pos[:, slots] = tail_pos
-            new_cache = AttnCache(kc, vc, pos, S)
+
+            def write(kc, vc, pos, k, v, positions):
+                tail_pos = positions[:, -take:].to(torch.int32)
+                slots = (tail_pos[0] % s_alloc).long()
+                kc, vc, pos = kc.clone(), vc.clone(), pos.clone()
+                kc[:, slots] = k[:, -take:]
+                vc[:, slots] = v[:, -take:]
+                pos[:, slots] = tail_pos
+                return kc, vc, pos
+            new_cache = AttnCache(*_write_cache(write, cache, k, v,
+                                                ctx.positions), S)
     hm = head_mask(cfg, out.dtype, x.device)
     if hm is not None:   # zero padded-head outputs → exact logical math
         out = out * hm[None, None, :, None]
-    return x + out.reshape(B, S, -1) @ _c(p["wo"], cfg), new_cache
+    return x + tp_out(out.reshape(B, S, -1) @ _c(p["wo"], cfg)), new_cache
 
 
 def apply_cross_attn(p: dict, x: torch.Tensor, ctx: Ctx,
@@ -204,10 +234,10 @@ def apply_cross_attn(p: dict, x: torch.Tensor, ctx: Ctx,
     H, KV = cfg.phys_heads, cfg.phys_kv_heads
     Dh = cfg.resolved_head_dim
     h = L.rms_norm(x, _c(p["ln"], cfg), cfg.norm_eps)
-    q = (h @ _c(p["wq"], cfg)).reshape(B, S, H, Dh)
+    q = split_heads(h @ _c(p["wq"], cfg), H, Dh)
     enc = ctx.enc_out
-    k = (enc @ _c(p["wk"], cfg)).reshape(B, enc.shape[1], KV, Dh)
-    v = (enc @ _c(p["wv"], cfg)).reshape(B, enc.shape[1], KV, Dh)
+    k = split_heads(enc @ _c(p["wk"], cfg), KV, Dh)
+    v = split_heads(enc @ _c(p["wv"], cfg), KV, Dh)
     kv_map = head_kv_map(cfg, x.device) \
         if cfg.phys_heads != cfg.n_heads else None
     impl = "naive" if enc.shape[1] <= cfg.attention_chunk \
@@ -217,7 +247,7 @@ def apply_cross_attn(p: dict, x: torch.Tensor, ctx: Ctx,
     hm = head_mask(cfg, out.dtype, x.device)
     if hm is not None:
         out = out * hm[None, None, :, None]
-    return x + out.reshape(B, S, -1) @ _c(p["wo"], cfg)
+    return x + tp_out(out.reshape(B, S, -1) @ _c(p["wo"], cfg))
 
 
 # =============================================================================
@@ -296,22 +326,27 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     top-C tokens, weighted by their probabilities.  The combine sums the
     weighted expert outputs back onto their tokens with ``index_add``.
     Every sequence routes on its own, as the JAX package's vmap does;
-    here the batch is flattened into the row indices."""
+    here the batch is flattened into the row indices.  On batch-sharded
+    DTensors each rank routes, dispatches and combines its own sequences
+    (``shard_ctx.local_rows``); the expert FFN runs on the DTensors."""
     m = cfg.moe
-    B, S, D = x.shape
+    _, S, D = x.shape
     E, k = m.n_experts, m.top_k
     C = moe_capacity(m, S)
     dev = x.device
     h = L.rms_norm(x, _c(p["ln"], cfg), cfg.norm_eps)          # (B, S, D)
     logits = h.to(torch.float32) @ p["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)                     # (B, S, E)
-    h_rows = h.reshape(B * S, D)
+    # routing is per sequence: each rank routes its own sequences
+    hl, probs = local_rows(h), local_rows(probs)
+    B = hl.shape[0]
+    h_rows = hl.reshape(B * S, D)
     seq = torch.arange(B, device=dev)[:, None]
     if m.router == "expert_choice":
         g, idx = torch.topk(probs.transpose(1, 2), C, dim=-1)  # (B, E, C)
         rows = (seq[:, :, None] * S + idx).reshape(-1)
-        ye = _expert_ffn(p, h_rows.index_select(0, rows).reshape(B, E, C, D),
-                         cfg)
+        ye = local_rows(_expert_ffn(p, rows_like(
+            h_rows.index_select(0, rows).reshape(B, E, C, D), h), cfg))
         contrib = (ye * g[..., None].to(ye.dtype)).reshape(B * E * C, D)
     else:
         slot, keep, gate = _token_choice_dispatch(probs, k, C)
@@ -319,19 +354,23 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                 ).reshape(-1)                                 # (B·S·k,)
         base = seq * (E * C)
         safe = torch.where(keep, base + slot, B * E * C).reshape(-1)
-        xe = h.new_zeros((B * E * C + 1, D)).index_copy(
+        xe = hl.new_zeros((B * E * C + 1, D)).index_copy(
             0, safe, h_rows.index_select(0, rows))
-        ye = _expert_ffn(p, xe[:B * E * C].reshape(B, E, C, D), cfg)
+        ye = local_rows(_expert_ffn(
+            p, rows_like(xe[:B * E * C].reshape(B, E, C, D), h), cfg))
         contrib = ye.reshape(B * E * C, D).index_select(
             0, (base + torch.clamp_max(slot, E * C - 1)).reshape(-1))
         contrib = contrib * (gate * keep).to(contrib.dtype).reshape(-1, 1)
     out = torch.zeros((B * S, D), dtype=contrib.dtype, device=dev
                       ).index_add(0, rows, contrib)
-    return x + out.reshape(B, S, D).to(x.dtype)
+    out = rows_like(out.reshape(B, S, D).to(x.dtype), h)
+    return x + tp_out(constrain(out, "batch", None, None))
 
 
 def _expert_ffn(p: dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(B, E, C, D) → (B, E, C, D): every expert's SwiGLU over its slots."""
+    """(B, E, C, D) → (B, E, C, D): every expert's SwiGLU over its slots
+    (expert-parallel over E)."""
+    xe = constrain(xe, "batch", "model", None, None)
     g = torch.einsum("becd,edf->becf", xe, _c(p["w_gate"], cfg))
     u = torch.einsum("becd,edf->becf", xe, _c(p["w_up"], cfg))
     return torch.einsum("becf,efd->becd", F.silu(g) * u,
@@ -377,8 +416,12 @@ def _rglru_gates(p: dict, xc: torch.Tensor, cfg: ModelConfig):
     """Decay ``a`` and gated input ``b`` of the linear recurrence, both
     float32."""
     c_const = 8.0
-    r = torch.sigmoid((xc @ _c(p["wa"], cfg)).to(torch.float32))
-    i = torch.sigmoid((xc @ _c(p["wi"], cfg)).to(torch.float32))
+    # the gate products contract the model-sharded channels: keep their
+    # outputs sharded over model along the channels
+    r = torch.sigmoid(constrain(xc @ _c(p["wa"], cfg), "batch", None, "model"
+                                ).to(torch.float32))
+    i = torch.sigmoid(constrain(xc @ _c(p["wi"], cfg), "batch", None, "model"
+                                ).to(torch.float32))
     log_a = -c_const * F.softplus(p["lam"]) * r              # (..., Dr)
     a = torch.exp(log_a)
     # sqrt(1-a²) normalization keeps the state scale input-independent
@@ -444,7 +487,7 @@ def apply_rglru(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig):
     if ctx.mode == "prefill" and new_cache is None and S > 1:
         new_cache = RGLRUCache(states[:, -1].clone(), new_tail)
     out = states.to(x.dtype) * F.gelu(gate, approximate="tanh")
-    return x + out @ _c(p["wo"], cfg), new_cache
+    return x + tp_out(out @ _c(p["wo"], cfg)), new_cache
 
 
 # =============================================================================
@@ -523,8 +566,9 @@ def wkv_chunked(r, k, v, w, u, state0, chunk: int = 32):
     fp32 tolerance.
 
     Splits S into chunks of C; within a chunk the causal interaction is a
-    strict-lower-triangular (C×C) matmul pair; across chunks the state is
-    carried by a loop.  Intra-chunk scores factor as
+    strict-lower-triangular (C×C) matmul pair, computed for all chunks at
+    once; across chunks the state is carried by a loop of one multiply
+    and add a chunk.  Intra-chunk scores factor as
     ``(r_t ⊙ Πw_{<t}) · (k_s ⊘ Πw_{≤s})`` — the second factor grows like
     exp(|Σ log w|) over a chunk, so apply_rwkv clips the log-decay and C
     stays ≤ 32 to keep it inside f32 range.
@@ -548,22 +592,24 @@ def wkv_chunked(r, k, v, w, u, state0, chunk: int = 32):
     k_out = kc * torch.exp(cum[:, :, :, -1:, :] - cum)       # decay s→chunk end
     tri = torch.tril(torch.ones((C, C), dtype=torch.float32,
                                 device=r.device), -1)
+    # every chunk at once: intra-chunk strict-causal attention, the
+    # diagonal bonus r_t · (u ⊙ k_t) v_t, and the chunk's end-decayed
+    # contribution to the state
+    scores = torch.einsum("nbhck,nbhsk->nbhcs", q_eff, k_in) * tri
+    intra = torch.einsum("nbhcs,nbhsv->nbhcv", scores, vc)
+    diag = torch.einsum("nbhck,hk->nbhc", rc * kc, u)[..., None] * vc
+    kv = torch.einsum("nbhsk,nbhsv->nbhkv", k_out, vc)
+    decay = total.transpose(-1, -2)                          # (n,B,H,Dh,1)
+    # the state entering each chunk: decay across the chunk plus its
+    # contribution, carried by a loop
     state = state0
-    outs = []
+    states = []
     for i in range(n):
-        qe, vq = q_eff[i], vc[i]
-        # inter-chunk: queries read the carried state through decay-in
-        inter = torch.einsum("bhck,bhkv->bhcv", qe, state)
-        # intra-chunk strict-causal attention
-        scores = torch.einsum("bhck,bhsk->bhcs", qe, k_in[i]) * tri
-        intra = torch.einsum("bhcs,bhsv->bhcv", scores, vq)
-        # diagonal bonus: r_t · (u ⊙ k_t) v_t
-        diag = torch.einsum("bhck,hk->bhc", rc[i] * kc[i], u)[..., None] * vq
-        outs.append(inter + intra + diag)
-        # state: decay across the chunk + end-decayed contributions
-        state = state * total[i].transpose(-1, -2) + \
-            torch.einsum("bhsk,bhsv->bhkv", k_out[i], vq)
-    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, S, H, Dh)
+        states.append(state)
+        state = state * decay[i] + kv[i]
+    # inter-chunk: queries read the carried state through decay-in
+    inter = torch.einsum("nbhck,nbhkv->nbhcv", q_eff, torch.stack(states))
+    out = (inter + intra + diag).permute(1, 0, 3, 2, 4).reshape(B, S, H, Dh)
     return out, state
 
 
@@ -584,7 +630,9 @@ def apply_rwkv(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig):
     The WKV runs, in the JAX package's branch order: the wkv6 kernel
     (``rwkv_impl="pallas"``, prefill, S a multiple of ``rwkv_chunk``);
     else :func:`wkv_scan` in decode, for ``"scan"`` and for ragged S;
-    else :func:`wkv_chunked`."""
+    else :func:`wkv_chunked`.  On sharded activations the
+    recurrence runs on each rank's sequences and heads
+    (``shard_ctx.run_local``)."""
     if cfg.rwkv_impl not in RWKV_IMPLS:
         raise NotImplementedError(f"rwkv_impl={cfg.rwkv_impl!r}: the port "
                                   f"has {RWKV_IMPLS}")
@@ -598,9 +646,9 @@ def apply_rwkv(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig):
     prev = _shift(h, cache.shift1 if decode else None)
     mu = _c(p["mu"], cfg)
     xr, xk, xv, xw, xg = (_ddlerp(h, prev, mu[i]) for i in range(5))
-    r = (xr @ _c(p["wr"], cfg)).reshape(B, S, H, Dh)
-    k = (xk @ _c(p["wk"], cfg)).reshape(B, S, H, Dh)
-    v = (xv @ _c(p["wv"], cfg)).reshape(B, S, H, Dh)
+    r = split_heads(xr @ _c(p["wr"], cfg), H, Dh)
+    k = split_heads(xk @ _c(p["wk"], cfg), H, Dh)
+    v = split_heads(xv @ _c(p["wv"], cfg), H, Dh)
     g = xg @ _c(p["wgate"], cfg)
     # the decay LoRA runs in f32 on the uncast weights (promoted to f32
     # where the trainer's gather_dtype cast them, as JAX promotes)
@@ -619,14 +667,19 @@ def apply_rwkv(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig):
             (B, H, Dh, Dh), dtype=torch.float32, device=x.device)
         if ctx.mode == "decode" or cfg.rwkv_impl == "scan" or \
                 S % cfg.rwkv_chunk != 0 or S < cfg.rwkv_chunk:
-            out, state = wkv_scan(rf, kf, vf, w, u, state0)
+            wkv = wkv_scan
         else:
-            out, state = wkv_chunked(rf, kf, vf, w, u, state0,
-                                     chunk=cfg.rwkv_chunk)
+            def wkv(*a):
+                return wkv_chunked(*a, chunk=cfg.rwkv_chunk)
+        # per sequence and head: on each rank's shards when sharded
+        heads = ("batch", None, "model", None)
+        out, state = run_local(wkv, (heads,) * 4 + (
+            ("model", None), ("batch", "model", None, None)), (0, 5),
+            rf, kf, vf, w, u, state0)
     out = out.reshape(B, S, D)
     out = L.rms_norm(out.to(x.dtype), _c(p["ln_x"], cfg), cfg.norm_eps)
     out = out * F.silu(g)
-    x = x + out @ _c(p["wo"], cfg)
+    x = x + tp_out(out @ _c(p["wo"], cfg))
     # ---- channel mix ----
     h2 = L.rms_norm(x, _c(p["ln2"], cfg), cfg.norm_eps)
     prev2 = _shift(h2, cache.shift2 if decode else None)
@@ -634,7 +687,7 @@ def apply_rwkv(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig):
     xk2 = _ddlerp(h2, prev2, mu_c[0])
     xr2 = _ddlerp(h2, prev2, mu_c[1])
     kk = torch.square(torch.relu(xk2 @ _c(p["ck"], cfg)))
-    vv = kk @ _c(p["cv"], cfg)
+    vv = tp_out(kk @ _c(p["cv"], cfg))
     rr = torch.sigmoid(xr2 @ _c(p["cr"], cfg))
     x = x + rr * vv
     new_cache = None

@@ -11,8 +11,8 @@ Attention implementations, as there:
 JAX's bf16 einsums with ``preferred_element_type=float32`` multiply bf16
 values with float32 accumulation and a float32 result; here the operands
 are upcast to float32 before the product, which computes the same
-values.  The JAX package's sharding constraints have no counterpart on
-one device.
+values.  The JAX package's sharding constraints are ``shard_ctx``
+calls at the same sites: no-ops on plain tensors.
 """
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
+from .shard_ctx import (alike_steps, constrain, partial_over, run_local,
+                        tp_out)
 
 NEG_INF = -1e30
 
@@ -29,10 +31,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     """RMS norm in float32 scaled by ``1 + scale``, cast back to x's
     dtype."""
     dt = x.dtype
+    if x.ndim == 3:
+        # the statistics need whole rows: gather a D-sharded input first
+        x = constrain(x, "batch", None, None)
     x = x.to(torch.float32)
     var = torch.mean(x * x, dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
-    return out.to(dt)
+    out = out.to(dt)
+    if out.ndim == 3:
+        # keep activations batch-sharded (not D-sharded like the weights)
+        out = constrain(out, "batch", None, None)
+    return out
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -117,8 +126,8 @@ def attention_chunked(q, k, v, q_pos, k_pos, causal: bool = True,
     """
     b, sq, h, dh = q.shape
     sk = k.shape[1]
-    k = _expand_kv(k, h, kv_map)
-    v = _expand_kv(v, h, kv_map)
+    k = constrain(_expand_kv(k, h, kv_map), "batch", None, "model", None)
+    v = constrain(_expand_kv(v, h, kv_map), "batch", None, "model", None)
     bq = min(chunk, sq)
     ck = min(chunk, sk)
     # pad ragged edges; padded K slots get k_pos = -1 (always masked) and
@@ -150,7 +159,7 @@ def attention_chunked(q, k, v, q_pos, k_pos, causal: bool = True,
                              device=q.device),
                  torch.zeros((b, h, bq, dh), dtype=torch.float32,
                              device=q.device))
-        for j in range(lo, hi):
+        for j in alike_steps(lo, hi, q):
             bias = _mask_bias(qp[:, i], kp[:, j], causal, window)
             carry = _online_block(qb[:, i], kb[:, j], vb[:, j], bias, carry)
         _, l, acc = carry
@@ -177,17 +186,25 @@ def attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     kernel; else ``naive`` for short sequences."""
     if impl == "pallas" and _pallas_attention_ok(q, k, chunk, kv_map):
         return flash_attention(q, k, v, causal=causal, window=window)
-    if impl == "naive" or q.shape[1] <= chunk:
-        return attention_naive(q, k, v, q_pos, k_pos, causal, window,
-                               kv_map=kv_map)
-    if impl in ("chunked", "pallas"):
-        return attention_chunked(q, k, v, q_pos, k_pos, causal, window,
-                                 chunk=chunk, triangular=False,
-                                 kv_map=kv_map)
-    if impl == "chunked_tri":
-        return attention_chunked(q, k, v, q_pos, k_pos, causal, window,
-                                 chunk=chunk, triangular=True, kv_map=kv_map)
-    raise ValueError(f"unknown attention impl {impl!r}")
+    if impl not in ("naive", "chunked", "pallas", "chunked_tri"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    # K/V expanded to the query heads (a copy, as the forms below make),
+    # then every (sequence, head) attends on its own: on each rank's
+    # shards when sharded
+    h = q.shape[2]
+    k = constrain(_expand_kv(k, h, kv_map), "batch", None, "model", None)
+    v = constrain(_expand_kv(v, h, kv_map), "batch", None, "model", None)
+
+    def core(q, k, v, q_pos, k_pos):
+        if impl == "naive" or q.shape[1] <= chunk:
+            return (attention_naive(q, k, v, q_pos, k_pos, causal, window),)
+        return (attention_chunked(q, k, v, q_pos, k_pos, causal, window,
+                                  chunk=chunk,
+                                  triangular=impl == "chunked_tri"),)
+
+    heads, rows = ("batch", None, "model", None), ("batch", None)
+    return run_local(core, (heads, heads, heads, rows, rows), (0,),
+                     q, k, v, q_pos, k_pos)[0]
 
 
 def _pallas_attention_ok(q, k, chunk, kv_map) -> bool:
@@ -204,7 +221,9 @@ def _pallas_attention_ok(q, k, chunk, kv_map) -> bool:
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    g = constrain(x @ w_gate, "batch", None, "model")
+    u = constrain(x @ w_up, "batch", None, "model")
+    return tp_out((F.silu(g) * u) @ w_down)
 
 
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
@@ -219,11 +238,54 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_id: int = -100) -> torch.Tensor:
     """Token-mean CE. logits: (B,S,V) any float dtype; labels: (B,S)."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.clamp_min(0).long()[..., None])[..., 0]
+    lse = _lse(logits)
+    gold = _gold(logits, labels)
     mask = (labels != ignore_id).to(torch.float32)
     return torch.sum((lse - gold) * mask) / torch.clamp_min(mask.sum(), 1.0)
+
+
+def _lse(logits: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the vocab.  On logits sharded over the vocab (a
+    DTensor) as max, shift, exp and sum, each of which DTensor reduces
+    across the shards (a max and a sum of (B, S) partials) instead of
+    gathering the logits whole."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(logits, DTensor):
+        return torch.logsumexp(logits, dim=-1)
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    # the partial sums reduced batch-sharded (not resharded along the
+    # batch over model, which the backward would have to undo)
+    rows = ("batch",) + (None,) * (logits.ndim - 2)
+    total = constrain(torch.sum(torch.exp(logits - m), dim=-1), *rows)
+    return torch.log(total) + constrain(m[..., 0], *rows)
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The labels' logits.  On DTensor logits the gather runs on each
+    rank's shard (its backward then scatters into a shard-sized buffer,
+    where DTensor's own allocates the whole tensor); logits sharded over
+    the vocab (``Shard`` of the last dim) gather their own columns,
+    others masked to 0, and sum over the shards (a partial sum the
+    caller's reduction resolves)."""
+    from torch.distributed.tensor import DTensor
+    idx = labels.clamp_min(0).long()
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, idx[..., None])[..., 0]
+    last = logits.ndim - 1
+    local = logits.to_local()
+    ids = idx.to_local() if isinstance(idx, DTensor) else idx
+    vocab = [d for d, p in enumerate(logits.placements) if p.is_shard(last)]
+    if not vocab:
+        g = torch.gather(local, -1, ids[..., None])[..., 0]
+        return DTensor.from_local(g, logits.device_mesh, logits.placements,
+                                  run_check=False)
+    (md,) = vocab
+    n = local.shape[-1]
+    ids = ids - logits.device_mesh.get_local_rank(md) * n
+    ok = (ids >= 0) & (ids < n)
+    g = torch.gather(local, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    return constrain(partial_over(g * ok.to(g.dtype), logits, md),
+                     "batch", *(None,) * (g.ndim - 1))
 
 
 def chunked_cross_entropy(x: torch.Tensor, w_head: torch.Tensor,
@@ -252,9 +314,8 @@ def chunked_cross_entropy(x: torch.Tensor, w_head: torch.Tensor,
         logits = x[:, i * cs:(i + 1) * cs].to(torch.float32) @ w
         if pad_mask is not None:
             logits = logits + pad_mask
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            ls.clamp_min(0).long()[..., None])[..., 0]
+        lse = _lse(logits)
+        gold = _gold(logits, ls)
         mask = (ls != ignore_id).to(torch.float32)
         nll = nll + torch.sum((lse - gold) * mask)
         n_tok = n_tok + mask.sum()

@@ -22,11 +22,17 @@ run through the non-causal encoder (:func:`_encode`); or, in decode,
 
 Modes:
 * ``train``   — full-sequence forward; :func:`loss_fn` adds the
-  next-token cross-entropy.  ``cfg.remat`` "block" (and
-  "block_save_coll", which differs from it only in which tensor-parallel
-  collective outputs it keeps, none on one device) recomputes each layer
-  in the backward (``torch.utils.checkpoint``); the encoder's layers
-  only under "block", as in the JAX package.
+  next-token cross-entropy.  ``cfg.remat`` "block" recomputes each layer
+  in the backward (``torch.utils.checkpoint``); "block_save_coll" does
+  too, but keeps the outputs of the collectives that pin tensor-parallel
+  contraction outputs (``shard_ctx.tp_out``, the JAX package's
+  ``"tp_out"``), so the recompute does not replay them (selective
+  checkpointing); with no collectives it equals "block".  The encoder's
+  layers are recomputed only under "block", as in the JAX package.
+
+Each layer's parameters pass through ``shard_ctx.gathered`` inside the
+remat boundary (the sharded train step's FSDP gather; the identity
+elsewhere).
 * ``prefill`` — full-sequence forward building decode caches.
 * ``decode``  — single-token step consuming/updating caches.
 """
@@ -34,11 +40,14 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import blocks as B
 from . import layers as L
 from .config import ATTN, LOCAL_ATTN, RGLRU, RWKV, ModelConfig
+from .shard_ctx import (constrain, gathered, local_rows, partial_over,
+                        rows_like, tp_out)
 
 BLOCK_TYPES = (ATTN, LOCAL_ATTN, RGLRU, RWKV)
 REMAT_BLOCK = ("block", "block_save_coll")
@@ -72,31 +81,46 @@ def _init_layer(ltype: str, cfg: ModelConfig, gen: torch.Generator) -> dict:
     raise NotImplementedError(ltype)
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """Random parameters from ``gen``, on ``gen``'s device."""
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                place=None) -> dict:
+    """Random parameters from ``gen``, on ``gen``'s device.  ``place``
+    (path, subtree) -> subtree, if given, is applied to each top-level
+    leaf and each layer as soon as it is made (the trainer slices them
+    to a rank's shards there, so the whole tree never exists at once);
+    it draws nothing from ``gen``, so the values are the same."""
     check_supported(cfg)
+    if place is None:
+        def place(path, sub):
+            return sub
     dev, V, D = gen.device, cfg.padded_vocab, cfg.d_model
     params: dict = {
-        "embed": torch.randn((V, D), generator=gen, device=dev,
-                             dtype=torch.float32).mul_(D ** -0.5),
-        "final_norm": torch.zeros((D,), dtype=torch.float32, device=dev),
+        "embed": place(("embed",), torch.randn(
+            (V, D), generator=gen, device=dev,
+            dtype=torch.float32).mul_(D ** -0.5)),
+        "final_norm": place(("final_norm",), torch.zeros(
+            (D,), dtype=torch.float32, device=dev)),
     }
     if not cfg.tie_embeddings:
-        params["head"] = torch.randn((D, V), generator=gen, device=dev,
-                                     dtype=torch.float32).mul_(D ** -0.5)
-    params["layers"] = [_init_layer(lt, cfg, gen) for lt in cfg.layer_types()]
+        params["head"] = place(("head",), torch.randn(
+            (D, V), generator=gen, device=dev,
+            dtype=torch.float32).mul_(D ** -0.5))
+    params["layers"] = [place(("layers", i), _init_layer(lt, cfg, gen))
+                        for i, lt in enumerate(cfg.layer_types())]
     if cfg.is_encdec:
         # the encoder: the decoder's dims, non-causal, SwiGLU MLPs
         params["encoder"] = {
-            "layers": [{"attn": B.init_attn(cfg, gen),
-                        "mlp": B.init_mlp(cfg, gen)}
-                       for _ in range(cfg.encoder_layers)],
-            "final_norm": torch.zeros((D,), dtype=torch.float32, device=dev),
+            "layers": [place(("encoder", "layers", i),
+                             {"attn": B.init_attn(cfg, gen),
+                              "mlp": B.init_mlp(cfg, gen)})
+                       for i in range(cfg.encoder_layers)],
+            "final_norm": place(("encoder", "final_norm"), torch.zeros(
+                (D,), dtype=torch.float32, device=dev)),
         }
     if cfg.frontend == "vision":
         # stub projection from precomputed patch embeddings to d_model
-        params["img_proj"] = torch.randn((D, D), generator=gen, device=dev,
-                                         dtype=torch.float32).mul_(D ** -0.5)
+        params["img_proj"] = place(("img_proj",), torch.randn(
+            (D, D), generator=gen, device=dev,
+            dtype=torch.float32).mul_(D ** -0.5))
     return params
 
 
@@ -160,19 +184,42 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
             for lt in cfg.layer_types()]
 
 
+def _gathered_layer(ltype: str, p: dict, x, ctx: B.Ctx, cfg: ModelConfig):
+    return _apply_layer(ltype, gathered(p), x, ctx, cfg)
+
+
+def _is_tp_collective(func) -> bool:
+    """An all-reduce of the functional collectives: the op that pins a
+    ``tp_out`` (a partial sum over the model axis) inside a layer."""
+    return getattr(func, "_overloadpacket", None) is getattr(
+        torch.ops._c10d_functional, "all_reduce", ())
+
+
+def _save_tp_out(ctx, func, *args, **kwargs):
+    if _is_tp_collective(func):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_coll_contexts():
+    return create_selective_checkpoint_contexts(_save_tp_out)
+
+
 def _run_layers(params, x, ctx: B.Ctx, cfg: ModelConfig, caches=None):
     """Every layer in order. Returns (x, new_caches or None)."""
     new_caches = []
     remat = ctx.mode == "train" and cfg.remat in REMAT_BLOCK
+    kw = {"context_fn": _save_coll_contexts} \
+        if cfg.remat == "block_save_coll" else {}
     for i, (lt, lp) in enumerate(zip(cfg.layer_types(), params["layers"])):
         sub_ctx = B.Ctx(ctx.positions, ctx.mode,
                         None if caches is None else caches[i],
                         ctx.enc_out, ctx.enc_pos)
         if remat:
-            x, c = checkpoint(_apply_layer, lt, lp, x, sub_ctx, cfg,
-                              use_reentrant=False)
+            x, c = checkpoint(_gathered_layer, lt, lp, x, sub_ctx, cfg,
+                              use_reentrant=False, **kw)
         else:
-            x, c = _apply_layer(lt, lp, x, sub_ctx, cfg)
+            x, c = _gathered_layer(lt, lp, x, sub_ctx, cfg)
         new_caches.append(c)
     return x, (None if all(c is None for c in new_caches) else new_caches)
 
@@ -191,21 +238,50 @@ def _encode(params, frames: torch.Tensor, cfg: ModelConfig,
     hm = B.head_mask(cfg, x.dtype, x.device)
 
     def body(x, lp):
+        lp = gathered(lp)
         h = L.rms_norm(x, B._c(lp["attn"]["ln"], cfg), cfg.norm_eps)
         q, k, v = B._qkv(lp["attn"], h, cfg)
         out = L.attention(q, k, v, pos, pos, causal=False, impl="naive",
                           kv_map=kv_map)
         if hm is not None:
             out = out * hm[None, None, :, None]
-        x = x + out.reshape(*x.shape[:2], -1) @ B._c(lp["attn"]["wo"], cfg)
+        x = x + tp_out(out.reshape(*x.shape[:2], -1)
+                       @ B._c(lp["attn"]["wo"], cfg))
         return B.apply_mlp(lp["mlp"], x, cfg)
 
     remat = mode == "train" and cfg.remat == "block"
     for lp in params["encoder"]["layers"]:
         x = checkpoint(body, x, lp, use_reentrant=False) if remat \
             else body(x, lp)
-    return L.rms_norm(x, params["encoder"]["final_norm"].to(x.dtype),
-                      cfg.norm_eps)
+    return L.rms_norm(x, gathered(params["encoder"]["final_norm"]
+                                  ).to(x.dtype), cfg.norm_eps)
+
+
+def _lookup(tokens, table):
+    """``F.embedding``.  A table sharded over its vocab rows (a DTensor,
+    ``Shard(0)`` on the model axis) is looked up as a vocab-parallel
+    embedding: each rank its own rows (others masked to 0), a partial
+    sum over the shards that the caller's ``constrain`` all-reduces;
+    the gradient comes back whole to every shard."""
+    from torch.distributed.tensor import DTensor, Partial
+    if not isinstance(table, DTensor) or not isinstance(tokens, DTensor):
+        return F.embedding(tokens, table)
+    dims = [d for d, p in enumerate(table.placements) if p.is_shard(0)]
+    if not dims:
+        return F.embedding(tokens, table)
+    (md,) = dims
+    mesh = table.device_mesh
+    # the table's gradient from this rank's sequences is partial along
+    # the axes the tokens are sharded on
+    w = table.to_local(grad_placements=[
+        Partial() if t.is_shard() and p.is_replicate() else p
+        for p, t in zip(table.placements, tokens.placements)])
+    v0 = mesh.get_local_rank(md) * w.shape[0]
+    ids = tokens.to_local().long() - v0
+    ok = (ids >= 0) & (ids < w.shape[0])
+    out = F.embedding(ids.clamp(0, w.shape[0] - 1), w) * \
+        ok[..., None].to(w.dtype)
+    return partial_over(out, tokens, md)
 
 
 def _embed_inputs(params, batch: dict, cfg: ModelConfig, mode: str):
@@ -214,12 +290,14 @@ def _embed_inputs(params, batch: dict, cfg: ModelConfig, mode: str):
     given decode positions move past them."""
     tokens = batch["tokens"]
     dt = B.compute_dtype(cfg)
-    x = F.embedding(tokens, params["embed"]).to(dt)
+    # the residual stream starts batch-sharded and replicated over model
+    x = constrain(_lookup(tokens, gathered(params["embed"])),
+                  "batch", None, None).to(dt)
     x = x * (cfg.d_model ** 0.5)
     offset = 0
     enc_out = enc_pos = None
     if cfg.frontend == "vision" and "img_embeds" in batch:
-        img = batch["img_embeds"].to(dt) @ params["img_proj"].to(dt)
+        img = batch["img_embeds"].to(dt) @ gathered(params["img_proj"]).to(dt)
         x = torch.cat([img, x], dim=1)
         offset = img.shape[1]
     if cfg.is_encdec and "frames" in batch:
@@ -247,14 +325,16 @@ def forward(params, batch: dict, cfg: ModelConfig, mode: str = "train",
                                                            cfg, mode)
     ctx = B.Ctx(positions, mode, None, enc_out, enc_pos)
     x, new_caches = _run_layers(params, x, ctx, cfg, caches)
-    x = L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+    x = L.rms_norm(x, gathered(params["final_norm"]).to(x.dtype),
+                   cfg.norm_eps)
     if offset:  # drop the modality prefix before the LM head
         x = x[:, offset:]
     return x, new_caches
 
 
 def _head_matrix(params, cfg):
-    return params["embed"].T if cfg.tie_embeddings else params["head"]
+    return gathered(params["embed"]).T if cfg.tie_embeddings \
+        else gathered(params["head"])
 
 
 def logits_from_hidden(params, x, cfg):
@@ -284,7 +364,11 @@ def loss_fn(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 def prefill(params, batch: dict, cfg: ModelConfig, s_max: int):
     """Run the prompt, build decode caches. Returns (last_logits, caches)."""
     tokens = batch["tokens"]
-    caches = init_cache(cfg, tokens.shape[0], s_max, tokens.device)
+    # sharded: each rank makes the rings of its own sequences
+    rows = local_rows(tokens)
+    caches = [type(c)(*[rows_like(f, tokens) if isinstance(f, torch.Tensor)
+                        else f for f in c])
+              for c in init_cache(cfg, rows.shape[0], s_max, rows.device)]
     x, new_caches = forward(params, batch, cfg, mode="prefill",
                             caches=caches)
     return logits_from_hidden(params, x[:, -1:], cfg), new_caches

@@ -4,10 +4,11 @@ trees of tensors (the JAX package's ``train/optimizer.py``).
 ``adamw_update`` computes, leaf by leaf in float32 and in the JAX
 package's order of operations: global-norm clipping, a linear warmup of
 the learning rate, the moment updates, bias correction, and weight
-decay on every leaf.  It returns new parameters, a new state and the
-gradient norm, and leaves its arguments as they were.  The elementwise
-work runs as ``torch._foreach_*`` calls over all leaves at once, with at
-most two temporaries a leaf alive at a time.
+decay on every leaf.  It updates the parameters and the moments in
+place and returns them with the gradient norm.  The elementwise
+work runs as ``torch._foreach_*`` calls over all leaves at once, in
+place on the parameters and moments, with at most two temporaries a
+leaf alive at a time.
 
 Two knobs act on the gradient reduction (applied by the trainer):
 
@@ -17,6 +18,11 @@ Two knobs act on the gradient reduction (applied by the trainer):
   evaluation, the update applied once to their mean.
 
 ``gather_dtype`` casts float32 parameters before use in the loss.
+
+Leaves may be DTensors (the sharded train step's state): the update then
+runs on each rank's local shards, which elementwise arithmetic allows,
+and :func:`global_norm` sums each shard's squares once over the whole
+mesh.
 """
 from __future__ import annotations
 
@@ -24,8 +30,9 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
-from ..tree import tree_leaves, tree_map, tree_unflatten
+from ..tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,15 +64,45 @@ def _schedule(step: torch.Tensor, cfg: OptConfig) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in float32."""
-    leaves = [x.to(torch.float32) for x in tree_leaves(tree)]
-    sq = torch.stack([torch.sum(torch.square(x)) for x in leaves])
-    return torch.sqrt(torch.sum(sq))
+    """sqrt of the sum of every leaf's squares, in float32.  DTensor
+    leaves (sharded or replicated, not partial) count each entry once:
+    their local sums of squares are summed by placements and all-reduced
+    over the axes they are sharded on, one collective a set of
+    placements."""
+    leaves = tree_leaves(tree)
+    plain = [x.to(torch.float32) for x in leaves
+             if not isinstance(x, DTensor)]
+    if len(plain) == len(leaves):
+        sq = torch.stack([torch.sum(torch.square(x)) for x in plain])
+        return torch.sqrt(torch.sum(sq))
+    groups: dict = {}
+    for x in leaves:
+        if isinstance(x, DTensor):
+            if any(p.is_partial() for p in x.placements):
+                raise ValueError("global_norm of a partial DTensor")
+            groups.setdefault((x.device_mesh, tuple(x.placements)), []
+                              ).append(x.to_local().to(torch.float32))
+    parts = [torch.sum(torch.square(x)) for x in plain]
+    for (mesh, pls), xs in groups.items():
+        local = torch.stack([torch.sum(torch.square(x)) for x in xs]).sum()
+        parts.append(DTensor.from_local(
+            local, mesh, [Partial() if p.is_shard() else Replicate()
+                          for p in pls], run_check=False).full_tensor())
+    return torch.sqrt(torch.sum(torch.stack(parts)))
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
 
 
 @torch.no_grad()
 def adamw_update(params, grads, state: dict, cfg: OptConfig):
-    """One AdamW step.  Returns (new params, new state, gradient norm)."""
+    """One AdamW step.  Returns (params, state, gradient norm): the
+    parameters and moments are updated in place and returned (the state
+    is donated, as in the JAX package's train step, so a rank never
+    holds two copies of it; a caller that needs the old state clones
+    it).  The gradients are left as they were; at most two temporaries
+    a leaf are alive beside them."""
     step = state["step"] + 1
     stepf = step.to(torch.float32)
     lr = _schedule(step, cfg)
@@ -73,18 +110,20 @@ def adamw_update(params, grads, state: dict, cfg: OptConfig):
     b1, b2 = cfg.betas
     bc1 = 1 - b1 ** stepf
     bc2 = 1 - b2 ** stepf
-    p = tree_leaves(params)
-    g = [x.to(torch.float32) for x in tree_leaves(grads)]
+    p = [_local(x) for x in tree_leaves(params)]
+    g = [_local(x).to(torch.float32) for x in tree_leaves(grads)]
     if cfg.grad_clip:
-        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                            max=1.0)
-        g = torch._foreach_mul(g, scale)
+        g = torch._foreach_mul(g, torch.clamp(
+            cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0))
+    m = [_local(x) for x in tree_leaves(state["m"])]
+    v = [_local(x) for x in tree_leaves(state["v"])]
     # m = b1 m + (1 - b1) g
-    m = torch._foreach_mul(tree_leaves(state["m"]), b1)
+    torch._foreach_mul_(m, b1)
     t = torch._foreach_mul(g, 1 - b1)
     torch._foreach_add_(m, t)
+    del t
     # v = b2 v + (1 - b2) g g
-    v = torch._foreach_mul(tree_leaves(state["v"]), b2)
+    torch._foreach_mul_(v, b2)
     t = torch._foreach_mul(g, 1 - b2)
     torch._foreach_mul_(t, g)
     torch._foreach_add_(v, t)
@@ -100,9 +139,5 @@ def adamw_update(params, grads, state: dict, cfg: OptConfig):
     torch._foreach_add_(upd, t)
     del t
     torch._foreach_mul_(upd, lr)
-    new_p = torch._foreach_sub(p, upd)
-    del upd
-    return (tree_unflatten(params, new_p),
-            {"m": tree_unflatten(params, m), "v": tree_unflatten(params, v),
-             "step": step},
-            gnorm)
+    torch._foreach_sub_(p, upd)
+    return params, {"m": state["m"], "v": state["v"], "step": step}, gnorm

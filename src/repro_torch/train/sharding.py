@@ -16,9 +16,11 @@ those two attributes works.  The JAX package stacks layer groups with a
 leading dim that gets ``None``; the port's parameter tree lists layers,
 so its specs have no such dim (the rules detect extra leading dims by
 rank, as there).  :func:`placements` turns a spec into DTensor
-placements on a port :class:`~repro_torch.launch.mesh.Mesh`.  Applying
-those placements inside the train step needs a world of several cards;
-on one card the whole training state is local.
+placements on a port :class:`~repro_torch.launch.mesh.Mesh`;
+:func:`shard_params`, :func:`shard_batch` and :func:`shard_caches` turn
+whole trees (the same on every rank) into DTensors by those specs, each
+rank keeping its own slice with no communication, and
+:func:`full_tree` gathers them back.
 """
 from __future__ import annotations
 
@@ -230,11 +232,77 @@ def placements(spec: tuple, mesh) -> tuple:
     return tuple(out)
 
 
-def distribute(t, spec: tuple, mesh):
-    """``t`` as a DTensor over ``mesh`` with ``spec``'s placements (the
-    mesh must hold a ``DeviceMesh``: an initialized world)."""
-    from torch.distributed.tensor import distribute_tensor
+def shard_tensor(t, spec: tuple, mesh):
+    """``t`` (the whole tensor, equal on every rank) as a DTensor over
+    ``mesh`` with ``spec``'s placements: each rank keeps its slice (a
+    copy, so the whole tensor can be freed), with no communication.  A
+    dim sharded over several axes splits in the mesh's axis order, as
+    DTensor lays it out; the rules keep only axes that divide their
+    dims."""
+    import torch
+    from torch.distributed.tensor import DTensor
     if mesh.device_mesh is None:
-        raise ValueError("distribute needs a mesh over an initialized "
+        raise ValueError("shard_tensor needs a mesh over an initialized "
                          "torch.distributed world")
-    return distribute_tensor(t, mesh.device_mesh, placements(spec, mesh))
+    pls = placements(spec, mesh)
+    local = t
+    for axis, pl in zip(mesh.axis_names, pls):
+        if pl.is_shard():
+            n = mesh.shape[axis]
+            size = local.shape[pl.dim] // n
+            local = local.narrow(pl.dim, mesh.index(axis) * size, size)
+    if local is not t:
+        local = local.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh.device_mesh, pls, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def shard_like(tree, specs, mesh):
+    """``tree`` as DTensors placed by ``specs``, a spec tree of its
+    shape (a subtree of :func:`param_specs` of a tree it is part of)."""
+    from ..tree import leaves_at, tree_leaves, tree_unflatten
+    return tree_unflatten(tree, [
+        shard_tensor(p, s, mesh)
+        for p, s in zip(tree_leaves(tree), leaves_at(specs, tree))])
+
+
+def shard_params(params, mesh, profile: str = "2d"):
+    """``params`` (or any tree shaped like them, e.g. AdamW moments) as
+    DTensors placed by :func:`param_specs`."""
+    return shard_like(params, param_specs(params, mesh, profile), mesh)
+
+
+def batch_spec(x, mesh, profile: str = "2d") -> tuple:
+    """The batch dim over :func:`batch_axes`, or replicated where the
+    batch does not tile them (the JAX package's ``batch_shardings``)."""
+    axes = batch_axis_tuple(mesh, profile)
+    n = math.prod(mesh.shape[a] for a in axes)
+    ba = batch_axes(mesh, profile)
+    return ((ba if x.shape[0] % n == 0 else None),) + \
+        (None,) * (len(x.shape) - 1)
+
+
+def shard_batch(batch: dict, mesh, profile: str = "2d") -> dict:
+    """A global batch (equal on every rank) as DTensors sharded over the
+    batch axes."""
+    return {k: shard_tensor(v, batch_spec(v, mesh, profile), mesh)
+            for k, v in batch.items()}
+
+
+def shard_caches(caches: list, mesh) -> list:
+    """Decode caches as DTensors placed by :func:`cache_specs` (integer
+    fields stay as they are)."""
+    out = []
+    for c, spec in zip(caches, cache_specs(caches, mesh)):
+        out.append(type(c)(*[shard_tensor(f, s, mesh) if hasattr(f, "shape")
+                             else f for f, s in zip(c, spec)]))
+    return out
+
+
+def full_tree(tree):
+    """Every DTensor leaf of ``tree`` gathered whole (a collective: every
+    rank calls it); other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+    from ..tree import tree_map
+    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor)
+                    else x, tree)

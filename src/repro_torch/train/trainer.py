@@ -2,80 +2,147 @@
 ``train/trainer.py``).
 
 ``make_train_step`` builds the update: loss → gradients (``grad_accum``
-micro-batches, their mean) → optional ``grad_dtype`` cast → mean over
-the mesh's batch axes → AdamW.  Data parallelism is explicit here, where
-the JAX package shards the batch over ``data`` and lets XLA insert the
-reduction: each rank takes its slice of the global batch, and the
-gradients and the loss are summed with ``all_reduce`` over each batch
-axis's process group and divided by the ranks' count.  That mean equals
-the whole batch's only when every rank holds as many counted tokens,
-which holds for :class:`~repro_torch.data.TokenStream` batches (no label
-is ``ignore_id``).  Parameters and optimizer state stay whole on every
-rank; FSDP and tensor-parallel placements (``train.sharding``) are not
-applied inside the step.
+micro-batches, their mean) → optional ``grad_dtype`` cast → AdamW, in
+place on the state (donated, as in the JAX package).
+
+With a mesh of an initialized world the step is the JAX package's
+FSDP×TP step: a plain state is first placed by
+``train.sharding.shard_params`` (its DTensors are returned), and
+parameters and AdamW moments stay sharded at rest.  Each layer's
+parameters are cast to ``gather_dtype`` on the local shard and
+all-gathered over the FSDP axes where the layer uses them
+(``shard_ctx.gathered``, inside the remat boundary, so the recompute
+gathers again), kept sharded over ``model``; activations are pinned by
+``shard_ctx.constrain`` as in the JAX package.  The gather's backward
+reduce-scatters each gradient to its parameter's placements as the
+backward reaches it (in ``grad_dtype`` where set), so no rank holds a
+whole gradient of a sharded leaf; micro-batches sum the local shards.
+The global batch (equal on every rank) is sharded over the batch axes;
+the loss is the whole batch's mean.  ``mesh=None`` and a mesh outside a
+world run the step on one process with plain tensors.
 """
 from __future__ import annotations
 
-import math
+import contextlib
 from typing import Optional
 
 import torch
-import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..models import model as M
 from ..models.config import ModelConfig
+from ..models.shard_ctx import activation_sharding, param_gather
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from . import sharding as S
 from .optimizer import OptConfig, adamw_init, adamw_update
 
 
-def _local_batch(batch: dict, mesh, profile: str) -> dict:
-    """This rank's slice of the global batch along the mesh's batch
-    axes (row-major over them); the whole batch where it does not tile
-    them, as the JAX package replicates such batches."""
-    if mesh is None:
-        return batch
-    axes = S.batch_axis_tuple(mesh, profile)
-    n = math.prod(mesh.shape[a] for a in axes)
-    b = next(iter(batch.values())).shape[0]
-    if n == 1 or b % n:
-        return batch
-    i = 0
-    for a in axes:
-        i = i * mesh.shape[a] + mesh.index(a)
-    per = b // n
-    return {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+def is_sharded(params) -> bool:
+    """True when the state is DTensors (the sharded step's)."""
+    return any(isinstance(p, DTensor) for p in tree_leaves(params))
 
 
-def _batch_mean(tensors: list, mesh, profile: str) -> list:
-    """Mean of each tensor over the ranks of the mesh's batch axes, in
-    the tensor's own dtype (identity outside an initialized world)."""
-    if mesh is None:
-        return tensors
-    n = 1
-    for a in S.batch_axis_tuple(mesh, profile):
-        group = mesh.group(a)
-        if group is None:
-            continue
-        for t in tensors:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-        n *= dist.get_world_size(group)
-    if n > 1:
-        torch._foreach_div_(tensors, float(n))
-    return tensors
+class _GradCast(torch.autograd.Function):
+    """Identity forward; the backward casts the gradient's local values
+    to ``dtype`` (placements kept), so the reduction after it moves that
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor):
+            return DTensor.from_local(
+                g.to_local().to(ctx.dtype), g.device_mesh, g.placements,
+                run_check=False, shape=g.shape, stride=g.stride()), None
+        return g.to(ctx.dtype), None
+
+
+def gather_fn(mesh, profile: str = "2d", opt: Optional[OptConfig] = None):
+    """The sharded step's parameter gather (``shard_ctx.param_gather``):
+    each DTensor leaf cast to ``opt.gather_dtype`` on its shard, then
+    all-gathered over every axis but ``model`` (every axis under
+    ``zero3``); with ``opt.grad_dtype`` its gradient is cast before the
+    gather's backward reduce-scatters it."""
+    gd = getattr(torch, opt.gather_dtype) if opt and opt.gather_dtype \
+        else None
+    rd = getattr(torch, opt.grad_dtype) if opt and opt.grad_dtype else None
+
+    def one(p):
+        if not isinstance(p, DTensor):
+            return p
+        if gd is not None and p.dtype == torch.float32:
+            p = p.to(gd)
+        want = tuple(pl if axis == "model" and profile != "zero3"
+                     else Replicate()
+                     for axis, pl in zip(mesh.axis_names, p.placements))
+        if want != tuple(p.placements):
+            p = p.redistribute(p.device_mesh, want)
+        if rd is not None and p.requires_grad:
+            p = _GradCast.apply(p, rd)
+        return p
+
+    return lambda tree: tree_map(one, tree)
+
+
+@contextlib.contextmanager
+def sharded_context(mesh, profile: str = "2d",
+                    opt: Optional[OptConfig] = None):
+    """The contexts a sharded step runs the model under: activation
+    constraints, the parameter gather, and plain tensors made inside the
+    model (positions, masks, accumulators) taken as replicated."""
+    with activation_sharding(mesh, profile), \
+            param_gather(gather_fn(mesh, profile, opt)), \
+            implicit_replication():
+        yield
+
+
+def in_world(mesh) -> bool:
+    """True for a mesh over an initialized world (the sharded step's)."""
+    return mesh is not None and mesh.device_mesh is not None
+
+
+def place_state(params, opt_state, mesh, profile: str = "2d"):
+    """A plain (params, AdamW state) placed over ``mesh`` by
+    ``shard_params``; a sharded one, or one outside a world, as it
+    is."""
+    if not in_world(mesh) or is_sharded(params):
+        return params, opt_state
+    return (S.shard_params(params, mesh, profile),
+            dict(opt_state, m=S.shard_params(opt_state["m"], mesh, profile),
+                 v=S.shard_params(opt_state["v"], mesh, profile)))
+
+
+def _sharded_loss(cfg, params, batch, mesh, profile):
+    """The whole batch's loss as a plain (replicated) scalar, the batch
+    sharded over the batch axes; run under :func:`sharded_context`."""
+    loss = M.loss_fn(params, S.shard_batch(batch, mesh, profile), cfg)
+    return loss.full_tensor() if isinstance(loss, DTensor) else loss
 
 
 def make_loss_fn(cfg: ModelConfig, mesh=None, opt: Optional[OptConfig] = None,
                  profile: str = "2d"):
-    """``loss_fn(params, batch)`` on this rank's slice of the batch, the
-    float32 parameters cast to ``opt.gather_dtype`` before use."""
+    """``loss_fn(params, batch)``: the whole batch's loss, the float32
+    parameters cast to ``opt.gather_dtype`` before use.  In a world the
+    state is placed by :func:`place_state`, the batch sharded and the
+    model run under :func:`sharded_context`; the loss is a plain
+    replicated scalar."""
     def loss_fn(params, batch):
+        if in_world(mesh):
+            if not is_sharded(params):
+                params = S.shard_params(params, mesh, profile)
+            with sharded_context(mesh, profile, opt):
+                return _sharded_loss(cfg, params, batch, mesh, profile)
         if opt is not None and opt.gather_dtype:
             gd = getattr(torch, opt.gather_dtype)
             params = tree_map(
                 lambda p: p.to(gd) if p.dtype == torch.float32 else p,
                 params)
-        return M.loss_fn(params, _local_batch(batch, mesh, profile), cfg)
+        return M.loss_fn(params, batch, cfg)
     return loss_fn
 
 
@@ -83,19 +150,34 @@ def make_grad_fn(cfg: ModelConfig, opt: OptConfig, mesh=None,
                  profile: str = "2d"):
     """``grad_fn(params, batch) -> (loss, grads)``: the train step up to
     the optimizer — the global batch split into ``grad_accum``
-    micro-batches (each then sliced by rank), the ``grad_dtype`` cast,
-    and the mean over the batch axes.  The loss is a detached float32
-    scalar."""
+    micro-batches and the ``grad_dtype`` cast; in a world the gradients
+    are DTensors placed as their parameters (a plain ``params`` is
+    placed first).  The loss is a detached float32 scalar."""
     loss_fn = make_loss_fn(cfg, mesh, opt, profile)
 
     def value_and_grad(leaves, params, batch):
         live = tree_unflatten(params, leaves)
-        loss = loss_fn(live, batch)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        if not is_sharded(params):
+            loss = loss_fn(live, batch)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+        # one context over the forward and the backward (whose remat
+        # recompute runs the model again)
+        with sharded_context(mesh, profile, opt):
+            loss = _sharded_loss(cfg, live, batch, mesh, profile)
+            grads = torch.autograd.grad(loss, leaves)
+        # a leaf used replicated gets a partial gradient: reduce it to
+        # the leaf's placements (reduce-scatter / all-reduce)
+        grads = [g if tuple(g.placements) == tuple(p.placements)
+                 else g.redistribute(p.device_mesh, p.placements)
+                 for g, p in zip(grads, leaves)]
+        return loss.detach(), tuple(g.to_local() for g in grads)
 
     def grad_fn(params, batch):
+        if in_world(mesh) and not is_sharded(params):
+            params = S.shard_params(params, mesh, profile)
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
+        sharded = is_sharded(params)
         k = opt.grad_accum
         if k > 1:
             b = next(iter(batch.values())).shape[0]
@@ -104,8 +186,10 @@ def make_grad_fn(cfg: ModelConfig, opt: OptConfig, mesh=None,
                                  f"{k} micro-batches")
             loss = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].device)
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in leaves]
+            grads = [torch.zeros(g.shape, dtype=torch.float32,
+                                 device=g.device)
+                     for g in (p.to_local() if sharded else p
+                               for p in leaves)]
             for j in range(k):
                 mb = {n: v[j * (b // k):(j + 1) * (b // k)]
                       for n, v in batch.items()}
@@ -120,9 +204,13 @@ def make_grad_fn(cfg: ModelConfig, opt: OptConfig, mesh=None,
         if opt.grad_dtype:
             gd = getattr(torch, opt.grad_dtype)
             grads = [g.to(gd) for g in grads]
-        loss, *grads = _batch_mean([loss.to(torch.float32)] + grads, mesh,
-                                   profile)
-        return loss, tree_unflatten(params, grads)
+        if sharded:
+            # already reduced over the mesh by the gathers' backward
+            grads = [DTensor.from_local(g, p.device_mesh, p.placements,
+                                        run_check=False, shape=p.shape,
+                                        stride=p.stride())
+                     for g, p in zip(grads, leaves)]
+        return loss.to(torch.float32), tree_unflatten(params, grads)
 
     return grad_fn
 
@@ -130,10 +218,13 @@ def make_grad_fn(cfg: ModelConfig, opt: OptConfig, mesh=None,
 def make_train_step(cfg: ModelConfig, opt: OptConfig, mesh=None,
                     profile: str = "2d"):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "grad_norm"})`` with the global batch on every rank."""
+    {"loss", "grad_norm"})`` with the global batch on every rank.  The
+    state is updated in place (donated) and returned; in a world a plain
+    state is placed first (:func:`place_state`)."""
     grad_fn = make_grad_fn(cfg, opt, mesh, profile)
 
     def train_step(params, opt_state, batch):
+        params, opt_state = place_state(params, opt_state, mesh, profile)
         loss, grads = grad_fn(params, batch)
         params, opt_state, gnorm = adamw_update(params, grads, opt_state,
                                                 opt)
@@ -142,26 +233,48 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, mesh=None,
     return train_step
 
 
+def _serve_context(mesh, params):
+    """Activation constraints over ``mesh``; with DTensor parameters
+    also their gather and implicit replication, as in the train step."""
+    if mesh is not None and is_sharded(params):
+        return sharded_context(mesh)
+    return activation_sharding(mesh)
+
+
 def make_prefill_step(cfg: ModelConfig, s_max: int, mesh=None):
-    """``prefill_step(params, batch) -> (last logits, caches)``; the mesh
-    places no activation (see ``launch/mesh.py``)."""
+    """``prefill_step(params, batch) -> (last logits, caches)`` under
+    ``activation_sharding(mesh)``, as in the JAX package."""
     def prefill_step(params, batch):
-        with torch.no_grad():
+        with torch.no_grad(), _serve_context(mesh, params):
             return M.prefill(params, batch, cfg, s_max=s_max)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, mesh=None):
-    """``decode_step(params, caches, batch) -> (logits, caches)``."""
+    """``decode_step(params, caches, batch) -> (logits, caches)`` under
+    ``activation_sharding(mesh)``."""
     def decode_step(params, caches, batch):
-        with torch.no_grad():
+        with torch.no_grad(), _serve_context(mesh, params):
             return M.decode_step(params, caches, batch, cfg)
     return decode_step
 
 
-def init_train_state(cfg: ModelConfig, gen: torch.Generator):
-    """Seeded parameters on ``gen``'s device and their AdamW state."""
-    params = M.init_params(cfg, gen)
+def init_train_state(cfg: ModelConfig, gen: torch.Generator, mesh=None,
+                     profile: str = "2d"):
+    """Seeded parameters on ``gen``'s device and their AdamW state.  Over
+    a mesh of a world each rank keeps its shards by ``param_specs``, each
+    layer sliced as it is made: no rank holds the whole float32 tree,
+    and the values are those of ``shard_params`` of the whole."""
+    place = None
+    if in_world(mesh):
+        specs = S.param_specs(M.abstract_params(cfg), mesh, profile)
+
+        def place(path, sub):
+            spec = specs
+            for k in path:
+                spec = spec[k]
+            return S.shard_like(sub, spec, mesh)
+    params = M.init_params(cfg, gen, place)
     return params, adamw_init(params)
 
 

@@ -8,6 +8,7 @@ comes back through ``rank<r>.npz``.  Imports nothing of JAX, so the
 ranks start quickly.
 """
 import datetime
+import json
 import time
 from pathlib import Path
 
@@ -125,9 +126,12 @@ def train_batches(vocab: int) -> list:
 
 def train_run(mesh, grad_dtype=None) -> dict:
     """The first batch's (loss, gradients), then two train steps from
-    the seeded smoke parameters: losses, gradient norms, parameters."""
+    the seeded smoke parameters: losses, gradient norms, parameters (on
+    a mesh of a world the step places the plain state by
+    ``shard_params``; gradients and parameters are gathered whole)."""
     from repro_torch.configs import smoke_config
     from repro_torch.train import OptConfig, init_train_state
+    from repro_torch.train import sharding as S
     from repro_torch.train.trainer import make_grad_fn, make_train_step
     from repro_torch.tree import tree_leaves
     cfg = smoke_config(TRAIN_ARCH)
@@ -135,6 +139,7 @@ def train_run(mesh, grad_dtype=None) -> dict:
     params, state = init_train_state(cfg, torch.Generator().manual_seed(0))
     batches = train_batches(cfg.vocab)
     loss, grads = make_grad_fn(cfg, opt, mesh)(params, batches[0])
+    grads = S.full_tree(grads)
     out = {"loss0": loss.numpy()}
     for i, g in enumerate(tree_leaves(grads)):
         out[f"g{i}"] = g.float().numpy()
@@ -146,7 +151,7 @@ def train_run(mesh, grad_dtype=None) -> dict:
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     out.update(losses=np.asarray(losses), norms=np.asarray(norms))
-    for i, p in enumerate(tree_leaves(params)):
+    for i, p in enumerate(tree_leaves(S.full_tree(params))):
         out[f"p{i}"] = p.numpy()
     return out
 
@@ -192,7 +197,7 @@ def placement_ranks(rank, world):
     specs = leaves_at(S.param_specs(params, mesh), params)
     out = {}
     for i, (p, spec) in enumerate(zip(tree_leaves(params), specs)):
-        d = S.distribute(p, spec, mesh)
+        d = S.shard_tensor(p, spec, mesh)
         out[f"local{i}"] = np.asarray(d.to_local().shape)
         out[f"same{i}"] = np.asarray(torch.equal(d.full_tensor(), p))
     out.update({f"a_{k}": v for k, v in sharded_analytics(mesh).items()})
@@ -208,7 +213,7 @@ def remesh_ranks(rank, world, root):
     from repro_torch.train import sharding as S
     w = torch.arange(64, dtype=torch.float32).reshape(8, 8)
     mesh1 = make_mesh((2, 2), ("data", "model"))
-    placed = S.distribute(w, ("data", "model"), mesh1)
+    placed = S.shard_tensor(w, ("data", "model"), mesh1)
     if rank == 0:
         C.save(root, 0, {"w": placed.full_tensor()})
     else:
@@ -220,3 +225,130 @@ def remesh_ranks(rank, world, root):
     return {"local": back["w"].to_local().numpy(),
             "full": back["w"].full_tensor().numpy(),
             "placements": np.asarray(str(back["w"].placements))}
+
+
+# ---------------------------------------------------------------------------
+# The sharded (FSDP x TP) train step.
+# ---------------------------------------------------------------------------
+
+SHARDED_ARCHS = ("rwkv6-1.6b", "recurrentgemma-9b", "h2o-danube-1.8b",
+                 "granite-moe-3b-a800m")
+# S = 32: the chunked WKV (chunk 32) and, with attention_chunk=16, the
+# chunked attention run
+SHARDED_B, SHARDED_S, SHARDED_LR, SHARDED_CHUNK = 8, 32, 1e-3, 16
+
+
+def sharded_batches(vocab: int) -> list:
+    """Two global batches of ``SHARDED_B`` sequences from a seed."""
+    out = []
+    for seed in (20, 21):
+        toks = np.random.default_rng(seed).integers(
+            0, vocab, (SHARDED_B, SHARDED_S + 1)).astype(np.int32)
+        out.append({"tokens": torch.from_numpy(toks[:, :-1]),
+                    "labels": torch.from_numpy(toks[:, 1:])})
+    return out
+
+
+def sharded_run(arch: str, mesh=None, remat: str = "block",
+                grad_accum: int = 1, wire: str = None) -> dict:
+    """Two train steps of ``arch``'s smoke config from seeded parameters:
+    losses, gradient norms and the parameters after them (gathered
+    whole); on a mesh of a world the state is placed by ``shard_params``
+    and each leaf's local gradient and parameter shapes, and the local
+    bytes of parameters and moments, are returned too."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.train import OptConfig, init_train_state
+    from repro_torch.train import sharding as S
+    from repro_torch.train.trainer import make_grad_fn, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(smoke_config(arch), remat=remat,
+                              attention_chunk=SHARDED_CHUNK)
+    opt = OptConfig(lr=SHARDED_LR, warmup_steps=1, grad_accum=grad_accum,
+                    gather_dtype=wire, grad_dtype=wire)
+    params, state = init_train_state(cfg, torch.Generator().manual_seed(0))
+    out = {}
+    if mesh is not None:
+        whole = S.shard_params(params, mesh)
+        # placed layer by layer as made: the same shards and placements
+        params, state = init_train_state(
+            cfg, torch.Generator().manual_seed(0), mesh)
+        out["init_equal"] = np.asarray(all(
+            tuple(a.placements) == tuple(b.placements)
+            and torch.equal(a.to_local(), b.to_local())
+            for a, b in zip(tree_leaves(params), tree_leaves(whole))))
+        del whole
+        _, grads = make_grad_fn(cfg, opt, mesh)(params,
+                                                sharded_batches(cfg.vocab)[0])
+        for i, (g, p) in enumerate(zip(tree_leaves(grads),
+                                       tree_leaves(params))):
+            out[f"glocal{i}"] = np.asarray(g.to_local().shape)
+            out[f"plocal{i}"] = np.asarray(p.to_local().shape)
+        out["state_bytes"] = np.asarray(sum(
+            x.to_local().numel() * x.element_size()
+            for x in tree_leaves((params, state["m"], state["v"]))))
+    step = make_train_step(cfg, opt, mesh)
+    losses, norms = [], []
+    for b in sharded_batches(cfg.vocab):
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    out.update(losses=np.asarray(losses), norms=np.asarray(norms))
+    whole = S.full_tree(params) if mesh is not None else params
+    for i, p in enumerate(tree_leaves(whole)):
+        out[f"p{i}"] = p.detach().numpy()
+    return out
+
+
+def ckpt_tree():
+    """The tree the checkpoint round trips carry: rwkv6's seeded smoke
+    parameters."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    return init_params(smoke_config(SHARDED_ARCHS[0]),
+                       torch.Generator().manual_seed(3))
+
+
+def sharded_world_ranks(rank, world, shape, axes, extras, ckpt_in,
+                        ckpt_out):
+    """On a ``shape`` world: :func:`sharded_run` of every arch of
+    ``SHARDED_ARCHS`` (keys prefixed ``<arch>/``); with ``extras`` also
+    h2o under ``block_save_coll`` (``save_coll/``), rwkv6 with two
+    micro-batches (``ga2/``) and with bfloat16 gathers and gradients
+    (``bf16/``), the global norm of a sharded tree
+    (``gnorm``), a checkpoint of the trained rwkv6 parameters saved by
+    every rank to ``ckpt_out`` and the one-process checkpoint at
+    ``ckpt_in`` restored onto this mesh (``restored_*``)."""
+    from repro_torch import checkpoint as C
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import sharding as S
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.tree import leaves_at, tree_leaves
+    mesh = make_mesh(shape, axes)
+    out = {}
+    for arch in SHARDED_ARCHS:
+        out.update({f"{arch}/{k}": v
+                    for k, v in sharded_run(arch, mesh).items()})
+    if not extras:
+        return out
+    out.update({f"save_coll/{k}": v for k, v in sharded_run(
+        "h2o-danube-1.8b", mesh, remat="block_save_coll").items()})
+    out.update({f"ga2/{k}": v for k, v in sharded_run(
+        SHARDED_ARCHS[0], mesh, grad_accum=2).items()})
+    out.update({f"bf16/{k}": v for k, v in sharded_run(
+        SHARDED_ARCHS[0], mesh, wire="bfloat16").items()})
+    tree = ckpt_tree()
+    placed = S.shard_params(tree, mesh)
+    out["gnorm"] = np.asarray(float(global_norm(placed)))
+    C.save(ckpt_out, 7, placed, {"world": world})
+    dist.barrier()
+    specs = S.param_specs(tree, mesh)
+    back, meta = C.restore(ckpt_in, tree, mesh=mesh, shardings=specs)
+    out["restored_meta"] = np.asarray(json.dumps(meta))
+    out["restored_equal"] = np.asarray(all(
+        torch.equal(b.full_tensor(), t) for b, t in
+        zip(tree_leaves(back), tree_leaves(tree))))
+    out["restored_placed"] = np.asarray(all(
+        tuple(b.placements) == S.placements(sp, mesh) for b, sp in
+        zip(tree_leaves(back), leaves_at(specs, tree))))
+    return out

@@ -929,3 +929,102 @@ def test_one_rank_nccl_world(card, tmp_path):
         assert float((out["w"] - g["w"]).abs().max()) <= scale / 2 + 1e-7
     finally:
         dist.destroy_process_group()
+
+
+def _nccl_world(tmp_path):
+    import datetime
+
+    import torch.distributed as dist
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+
+
+def test_sharded_step_one_rank_nccl(card, tmp_path):
+    """The sharded train step (state placed by ``shard_params`` over a
+    (1, 1) mesh, every leaf a DTensor) in a one-rank NCCL world against
+    the plain step on the same seeded float32 smoke parameters and
+    batches: losses and gradient norms rtol=1e-4 (float32 on the card,
+    another reduction order), every parameter within 2·lr·steps."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import OptConfig, adamw_init
+    from repro_torch.train import sharding as S
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(smoke_config("rwkv6-1.6b"), dtype="float32")
+    opt = OptConfig(lr=1e-3, warmup_steps=1)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 65)).astype(
+            np.int32)).to(card)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+
+    def run(mesh, shard):
+        params = init_params(cfg, torch.Generator(device=card).manual_seed(0))
+        if shard:
+            params = S.shard_params(params, mesh)
+        state = adamw_init(params)
+        step = make_train_step(cfg, opt, mesh)
+        metrics = []
+        for b in batches:
+            params, state, m = step(params, state, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        return params, np.asarray(metrics)
+
+    want_p, want = run(None, False)
+    _nccl_world(tmp_path)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        got_p, got = run(mesh, True)
+        assert all(isinstance(p, DTensor) for p in tree_leaves(got_p))
+        got_p = S.full_tree(got_p)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+    for a, b in zip(tree_leaves(got_p), tree_leaves(want_p)):
+        assert float((a - b).abs().max()) <= 2 * 1e-3 * 2
+
+
+def test_census_under_nccl(card, tmp_path):
+    """``launch.census`` counts NCCL collectives by kind and operand
+    bytes (a (64, 32) float32 operand, 8192 bytes), a functional
+    all-reduce and an explicit ``dist.all_reduce`` each once."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+
+    from repro_torch.launch.census import Census
+    _nccl_world(tmp_path)
+    try:
+        x = torch.ones(64, 32, device=card)
+        c = Census()
+        with c:
+            fc.all_reduce(x, "sum", dist.group.WORLD).wait()
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+        assert c.collective_bytes() == {"all-reduce": 2 * 8192,
+                                        "total": 2 * 8192}
+        assert dict(c.coll_calls) == {"all-reduce": 2}
+    finally:
+        dist.destroy_process_group()
+
+
+def test_launch_train_over_the_world_on_card(card, tmp_path):
+    """``launch.train`` in a one-rank NCCL world places its state over the
+    world (DTensors by ``param_specs``) and trains: finite losses, and a
+    checkpoint written from the sharded state."""
+    import torch.distributed as dist
+
+    from repro_torch import checkpoint as C
+    from repro_torch.launch import train
+    _nccl_world(tmp_path)
+    try:
+        losses = train.main(["--smoke", "--steps", "2", "--workdir",
+                             str(tmp_path / "w"), "--ckpt-every", "2"])
+    finally:
+        dist.destroy_process_group()
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert C.latest_step(str(tmp_path / "w" / "ckpt_rwkv6_1_6b")) == 1

@@ -9,9 +9,10 @@ Tolerances, with their reasons:
   float32 sums of the shards' partial results, another order; SpMV
   rtol=1e-5 with atol=1e-5·max|y|, its signed terms cancelling (the
   rounding scales with the terms, not with their sum);
-* the data-parallel step: loss and gradients rtol=1e-5, atol=1e-6·max|g|
-  of the leaf (the mean of two half-batch means against the whole
-  batch's); parameters as ``test_torch_train.py`` holds them (every entry
+* the data-parallel step (the sharded step over a (2,) data mesh: each
+  rank's half of the batch, the gradients reduce-scattered): loss and
+  gradients rtol=1e-5, atol=1e-6·max|g| of the leaf (the sum of two
+  half-batch sums against the whole batch's); parameters as ``test_torch_train.py`` holds them (every entry
   within 2·lr·steps, 99.9% within 2e-6: Adam maps each gradient to about
   ±lr);
 * ``grad_dtype="bfloat16"``: gloo reduces bfloat16, so the ranks' bf16
@@ -21,9 +22,19 @@ Tolerances, with their reasons:
 * the int8 pod mean within scale/2 of the true mean, scale = the axis's
   absmax / 127 (each pod's rounding error is at most scale/2), and
   within rtol=1e-6 of the JAX package when every rank holds the same
-  gradients (the same float32 operations).
+  gradients (the same float32 operations);
+* the sharded (FSDP×TP) step on gloo worlds of (2, 2), (4,) and (1, 2)
+  ranks against the one-process step: losses rtol=1e-5 and gradient
+  norms rtol=1e-4 (the shards' float32 partial sums reduced in another
+  order; the norm sums squares over shards); parameters after two steps
+  as the data-parallel step's (every entry within 2·lr·steps, 99.9%
+  within 2e-6); ``block_save_coll`` against ``block`` on the same world
+  within rtol=1e-6 (the saved collective outputs are the values the
+  recompute would make); the global norm of a sharded tree rtol=1e-6; a
+  checkpoint across world sizes bit for bit.
 """
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -51,6 +62,7 @@ from repro_torch.models import abstract_params, init_cache
 from repro_torch.models import model as PM
 from repro_torch.train import compressed_pod_mean
 from repro_torch.train import sharding as S
+from repro_torch.tree import tree_leaves
 
 RTOL, ATOL = 1e-5, 1e-7
 DP_RTOL, DP_ATOL = 1e-5, 1e-6                # atol x max|g| of the leaf
@@ -358,3 +370,153 @@ def test_parameters_distributed_and_gathered(tmp_path):
         same_analytics({k[2:]: v for k, v in r.items()
                         if k.startswith("a_")}, one)
     assert any(s != (None,) * len(s) for s in specs)
+
+
+# ---------------------------------------------------------------------------
+# the sharded (FSDP x TP) train step
+# ---------------------------------------------------------------------------
+
+SHARDED_WORLDS = {"2x2": ((2, 2), ("data", "model"), True),
+                  "4": ((4,), ("data",), False),
+                  "1x2": ((1, 2), ("data", "model"), False)}
+
+
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    """Every ``SHARDED_WORLDS`` world's run (rank 0's, and every rank's
+    gradient shapes), the one-process runs, and the checkpoints."""
+    from repro_torch import checkpoint as CK
+    root = tmp_path_factory.mktemp("sharded")
+    one = {a: W.sharded_run(a) for a in W.SHARDED_ARCHS}
+    one["ga2"] = W.sharded_run(W.SHARDED_ARCHS[0], grad_accum=2)
+    one["bf16"] = W.sharded_run(W.SHARDED_ARCHS[0], wire="bfloat16")
+    CK.save(str(root / "one"), 5, W.ckpt_tree(), {"world": 1})
+    worlds = {}
+    for name, (shape, axes, extras) in SHARDED_WORLDS.items():
+        worlds[name] = W.run_world(
+            W.sharded_world_ranks, int(np.prod(shape)), root, shape, axes,
+            extras, str(root / "one"), str(root / f"ranks_{name}"))
+    return {"one": one, "worlds": worlds, "root": root}
+
+
+def runs_of(ranks: list, prefix: str) -> list:
+    return [{k[len(prefix):]: v for k, v in r.items()
+             if k.startswith(prefix)} for r in ranks]
+
+
+def same_steps(got: dict, want: dict) -> None:
+    close(got["losses"], want["losses"], rtol=DP_RTOL, atol=0)
+    close(got["norms"], want["norms"], rtol=1e-4, atol=0)
+    diff = np.concatenate([np.abs(got[f"p{i}"] - want[f"p{i}"]).ravel()
+                           for i in range(n_leaves(want, "p"))])
+    assert diff.max() <= 2 * W.SHARDED_LR * 2
+    assert (diff <= STEP_PARAM_ATOL).mean() >= STEP_PARAM_SHARE
+
+
+@pytest.mark.parametrize("arch", W.SHARDED_ARCHS)
+@pytest.mark.parametrize("world", sorted(SHARDED_WORLDS))
+def test_sharded_step_equals_one_process(sharded, world, arch):
+    """Two sharded train steps of the arch's smoke config (state placed
+    by ``shard_params``, the batch over the batch axes, S = 32: the
+    chunked WKV and chunked attention run) on every rank against the
+    one-process step; the ranks end with the same whole parameters."""
+    ranks = runs_of(sharded["worlds"][world], f"{arch}/")
+    for r in ranks:
+        same_steps(r, sharded["one"][arch])
+    for i in range(n_leaves(ranks[0], "p")):
+        for r in ranks[1:]:
+            np.testing.assert_array_equal(r[f"p{i}"], ranks[0][f"p{i}"])
+
+
+@pytest.mark.parametrize("world", sorted(SHARDED_WORLDS))
+def test_sharded_gradients_and_state_are_local(sharded, world):
+    """Every rank's gradient of every leaf has its parameter's local
+    shape (reduce-scattered in the backward, never whole where the leaf
+    is sharded), and parameters plus AdamW moments on a rank take the
+    whole state's bytes divided by the shard count, give or take the
+    leaves the rules replicate (norm scales, biases, mixes: under 10%
+    of the state)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import abstract_params
+    shape = SHARDED_WORLDS[world][0]
+    n = int(np.prod(shape))
+    for arch in W.SHARDED_ARCHS:
+        whole = 3 * 4 * sum(p.numel() for p in tree_leaves(
+            abstract_params(smoke_config(arch))))
+        for r in runs_of(sharded["worlds"][world], f"{arch}/"):
+            for i in range(n_leaves(r, "glocal")):
+                assert list(r[f"glocal{i}"]) == list(r[f"plocal{i}"]), \
+                    (arch, i)
+            got = int(r["state_bytes"])
+            assert whole / n <= got <= 1.1 * whole / n + 0.1 * whole, \
+                (arch, got, whole / n)
+
+
+@pytest.mark.parametrize("world", sorted(SHARDED_WORLDS))
+def test_sharded_init_places_layers_as_made(sharded, world):
+    """``init_train_state`` over a mesh of a world, each layer sliced as
+    it is made, gives every rank the shards and placements that
+    ``shard_params`` of the whole seeded tree gives, bit for bit."""
+    for arch in W.SHARDED_ARCHS:
+        for r in runs_of(sharded["worlds"][world], f"{arch}/"):
+            assert bool(r["init_equal"]), arch
+
+
+def test_sharded_grad_accum(sharded):
+    """Two micro-batches a step on the (2, 2) world against the
+    one-process step with two micro-batches."""
+    for r in runs_of(sharded["worlds"]["2x2"], "ga2/"):
+        same_steps(r, sharded["one"]["ga2"])
+
+
+def test_sharded_bf16_gathers_and_gradients(sharded):
+    """``gather_dtype`` and ``grad_dtype`` bfloat16 on the (2, 2) world:
+    parameters gathered and gradients reduce-scattered in bfloat16 (the
+    one-process step casts once, after the whole gradient), so the
+    losses agree within 2^-7 relative and the gradient norms within
+    2·2^-7 (two bf16 roundings of each gradient against one)."""
+    want = sharded["one"]["bf16"]
+    for r in runs_of(sharded["worlds"]["2x2"], "bf16/"):
+        close(r["losses"], want["losses"], rtol=BF16_REL, atol=0)
+        close(r["norms"], want["norms"], rtol=2 * BF16_REL, atol=0)
+        assert np.isfinite(r["p0"]).all()
+
+
+def test_block_save_coll_equals_block(sharded):
+    """``block_save_coll`` keeps the tensor-parallel collectives' outputs
+    instead of recomputing them: the same losses, norms and parameters
+    as ``block`` on the same (2, 2) world."""
+    for r in sharded["worlds"]["2x2"]:
+        got = {k[len("save_coll/"):]: v for k, v in r.items()
+               if k.startswith("save_coll/")}
+        want = {k[len("h2o-danube-1.8b/"):]: v for k, v in r.items()
+                if k.startswith("h2o-danube-1.8b/")}
+        close(got["losses"], want["losses"], rtol=1e-6, atol=0)
+        close(got["norms"], want["norms"], rtol=1e-6, atol=0)
+        for i in range(n_leaves(want, "p")):
+            close(got[f"p{i}"], want[f"p{i}"], rtol=1e-6, atol=1e-7)
+
+
+def test_global_norm_of_a_sharded_tree(sharded):
+    """``global_norm`` over DTensors of mixed placements (sharded over
+    one axis, two, or replicated) counts every entry once: the whole
+    tree's norm."""
+    from repro_torch.train.optimizer import global_norm
+    want = float(global_norm(W.ckpt_tree()))
+    for r in sharded["worlds"]["2x2"]:
+        close(r["gnorm"], want, rtol=1e-6, atol=0)
+
+
+def test_sharded_checkpoint_across_world_sizes(sharded):
+    """A sharded tree saved by 4 ranks (gathered, rank 0 writing) restores
+    whole on one process bit for bit, and one process's checkpoint
+    restores onto the 4-rank mesh placed by the specs, bit for bit."""
+    from repro_torch import checkpoint as CK
+    tree = W.ckpt_tree()
+    back, meta = CK.restore(str(sharded["root"] / "ranks_2x2"), tree)
+    assert meta == {"world": 4}
+    for b, t in zip(tree_leaves(back), tree_leaves(tree)):
+        assert b.dtype == t.dtype and torch.equal(b, t)
+    for r in sharded["worlds"]["2x2"]:
+        assert bool(r["restored_equal"]) and bool(r["restored_placed"])
+        assert json.loads(str(r["restored_meta"])) == {"world": 1}

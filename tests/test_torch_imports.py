@@ -252,3 +252,36 @@ def test_train_cli_runs_with_jax_and_reference_blocked(tmp_path):
              if line.startswith("step ")]
     assert [s[1] for s in steps] == ["0", "1"]
     assert all(np.isfinite(float(s[3])) for s in steps)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.models.shard_ctx", "repro_torch.launch.census",
+    "repro_torch.launch.dryrun", "repro_torch.launch.perfmodel",
+    "repro_torch.launch.roofline", "repro_torch.launch.calibrate",
+    "repro_torch.launch.hillclimb"])
+def test_launch_tooling_imports_with_jax_and_reference_blocked(module):
+    """The launch tooling (dry run, census, perf model, roofline,
+    calibration, hill climb) and the activation-sharding context import
+    with jax and the JAX package unimportable, and pull in neither: the
+    perf model's parity holds without the JAX package's dryrun (which
+    sets ``XLA_FLAGS`` at import)."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        flags = os.environ.get("XLA_FLAGS")
+        import importlib
+        importlib.import_module({module!r})
+        from repro_torch.launch import perfmodel
+        perfmodel.cell_perf("rwkv6-1.6b", "train_4k", "single")
+        assert os.environ.get("XLA_FLAGS") == flags
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        import torch.distributed as dist
+        assert not dist.is_initialized()
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_DEVICE="cpu")
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

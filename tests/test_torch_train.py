@@ -234,13 +234,17 @@ def test_adamw_update_matches():
                          .astype(np.float32), params)
         jp, js, jn = JO.adamw_update(jp, jax.tree.map(jnp.asarray, g), js,
                                      opt)
-        before = [t.clone() for t in tree_leaves(tp)]
-        tp2, ts, tn = PO.adamw_update(tp, tree_map(torch.from_numpy, g), ts,
-                                      popt)
-        # the arguments are left as they were
-        for b_, a_ in zip(before, tree_leaves(tp)):
+        tg = tree_map(torch.from_numpy, g)
+        before = [t.clone() for t in tree_leaves(tg)]
+        tp2, ts2, tn = PO.adamw_update(tp, tg, ts, popt)
+        # parameters and moments updated in place (donated), the
+        # gradients left as they were
+        assert all(a_ is b_ for a_, b_ in zip(
+            tree_leaves((tp2, ts2["m"], ts2["v"])),
+            tree_leaves((tp, ts["m"], ts["v"]))))
+        for b_, a_ in zip(before, tree_leaves(tg)):
             assert torch.equal(b_, a_)
-        tp = tp2
+        tp, ts = tp2, ts2
         close(tn, jn, ADAM_TOL)
         assert int(ts["step"]) == int(js["step"]) == i + 1
         assert ts["step"].dtype == torch.int32
