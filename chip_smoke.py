@@ -272,6 +272,16 @@ Phases, each of which must pass (any failure raises, exit code != 0):
     TFLOP/s at 8192³ and device copy GB/s beside 989 TFLOP/s and
     3.35 TB/s.
 
+17. The four examples on the card (after phase 16 (a) and (c), before
+    (b)'s dry runs): ``python -m repro_torch.examples.<name>`` for
+    ``quickstart``, ``pcap_analytics``, ``pcap_pipeline`` and
+    ``train_packet_lm``, one child process each on the default device,
+    which prints its kernel launch counts after the example: exit code
+    0, the example's closing line (PageRank, the top PageRank hosts,
+    "injected C2 recovered", "loss improved"), and exactly the
+    hand-written kernels the example reaches launched (none, at the
+    examples' own sizes); each example's seconds and launches logged.
+
 Prints each kernel's registers and shared memory (``cudaFuncGetAttributes``
 through each library's ``<lib>_attrs``), the card's name and power limit,
 a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -441,6 +451,19 @@ TRAIN_SMOKE_B, TRAIN_SMOKE_S, TRAIN_SMOKE_LR = 4, 128, 1e-3
 TRAIN_PARAM_NEAR = {"float32": (2e-6, 0.999), "bfloat16": (1e-4, 0.99)}
 # phase 16: the sharded steps against phase 14's first ones; the dry runs
 SHARDED_STEPS = 3
+# phase 17: each example's closing line, and the hand-written kernels its
+# path reaches (none at the examples' own sizes: the planner keeps chains
+# under DEVICE_NNZ_THRESHOLD on the host, PageRank reduces with
+# index_add_, and the reduced rwkv6 runs the chunked WKV)
+EXAMPLES = {
+    "quickstart": ("pagerank: [", ()),
+    "pcap_analytics": ("top PageRank hosts:", ()),
+    "pcap_pipeline": ("injected C2 recovered from the traffic. pipeline "
+                      "complete.", ()),
+    "train_packet_lm": ("trained on pipeline output; loss improved. done.",
+                        ()),
+}
+EXAMPLE_TIMEOUT_S = 300
 DRYRUN_CELLS = (("rwkv6-1.6b", "train_4k"), ("qwen2.5-14b", "prefill_32k"))
 DRYRUN_TIMEOUT_S = 600
 MATMUL_N, COPY_BYTES = 8192, 1 << 30
@@ -2536,6 +2559,56 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the examples on the card.
+# ---------------------------------------------------------------------------
+
+def examples_path() -> dict:
+    """Phase 17: ``python -m repro_torch.examples.<name>`` for each
+    example, one child process each on the default device (the card),
+    with the kernel launch counts of its run printed after it; each must
+    exit 0, print its closing line and launch exactly the kernels it
+    reaches."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    env.pop("REPRO_TORCH_DEVICE", None)
+    out = {}
+    for name, (closing, kernels) in EXAMPLES.items():
+        script = (
+            "import json, runpy\n"
+            "from repro_torch.kernels import ops\n"
+            f"runpy.run_module('repro_torch.examples.{name}', "
+            "run_name='__main__', alter_sys=True)\n"
+            "print('[launches]', json.dumps(ops.kernel_launches()))\n")
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-c", script], env=env, cwd=str(root),
+                capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"[examples] {name} not done in "
+                               f"{EXAMPLE_TIMEOUT_S} s")
+        took = time.perf_counter() - t0
+        check(proc.returncode == 0, f"[examples] {name} exited with "
+              f"{proc.returncode}: {proc.stderr[-3000:]}")
+        lines = proc.stdout.rstrip().splitlines()
+        check(len(lines) >= 2 and lines[-1].startswith("[launches] "),
+              f"[examples] {name} printed no launch counts")
+        launches = json.loads(lines[-1][len("[launches] "):])
+        printed = lines[:-1]
+        check(any(x.startswith(closing) for x in printed[-6:]),
+              f"[examples] {name}: no closing line {closing!r} in "
+              f"{printed[-6:]}")
+        reached = sorted(k for k, n in launches.items() if n)
+        check(reached == sorted(kernels),
+              f"[examples] {name} launched {launches}, want {kernels}")
+        out[name] = {"seconds": took, "launches": launches,
+                     "last_lines": printed[-3:]}
+        log(f"[examples] {name}: {took:.1f} s, launches {launches}, "
+            f"ends {printed[-1]!r}")
+    return out
+
+
 def dryrun_cells(out_dir: str) -> dict:
     """Phase 16 (b)'s dry runs in a process of their own on the host (no
     card: they count a fake world); each cell's seconds."""
@@ -2843,6 +2916,7 @@ def phases(dev, smi: str, t_start: float) -> int:
     rates = device_rates(smi)
     roof = step_roofline(trained["full_width"], trained["sharded"], rates,
                          smi)
+    examples = examples_path()
     # the host-heavy dry runs after the last timed phase
     dry = dryrun_path(smi)
 
@@ -2987,6 +3061,7 @@ def phases(dev, smi: str, t_start: float) -> int:
     log("[train] " + json.dumps({"train": trained}))
     log("[phase16] " + json.dumps({"card": smi, "dryrun": dry,
                                    "rates": rates, "roofline": roof}))
+    log("[phase17] " + json.dumps({"card": smi, "examples": examples}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -2,20 +2,21 @@
 (the JAX package's ``launch/calibrate.py``).
 
 For every architecture a **unit variant** (one pattern period of layers,
-grad_accum=1, naive attention, the Python-loop WKV; the JAX package's
-field changes, its ``"unrolled"`` WKV run as the port's ``"scan"``)
-runs its real train step in the fake 256-rank world of
-``launch/dryrun.py`` over the (16, 16) production mesh, and a
-:class:`~repro_torch.launch.census.Census` counts its per-device FLOPs on
-the local shards.  The analytic model's prediction for the same
-configuration (``perfmodel.cell_perf(..., "single")``) is set beside it.
+grad_accum=1, naive attention, the Python-loop ``"unrolled"`` WKV: the
+JAX package's field changes) runs its real train step in the fake
+256-rank world of ``launch/dryrun.py`` over the (16, 16) production
+mesh, and a :class:`~repro_torch.launch.census.Census` counts its
+per-device FLOPs on the local shards.  The analytic model's prediction
+for the same configuration (``perfmodel.cell_perf(..., "single")``) is
+set beside it.
 
 The two count different things, so the ratio is a band, not 1:
 ``torch.utils.flop_counter`` counts matmul-class ops only (mm, bmm,
 einsum's products, convolutions), where the model also charges
 elementwise work (softmax, the RG-LRU combine, AdamW); and the model
-assumes every tensor-parallel dim divides the axis, where a replicated
-head count (kv heads below 16) repeats work on every model rank.
+assumes every tensor-parallel dim divides the axis, where query heads
+that do not divide it (qwen2.5's 40 on 16) are replicated and repeat
+their work on every model rank.
 PERF.md states the band each arch falls in.
 
 Writes results/torch/calib/<arch>.json and prints a summary table.
@@ -60,10 +61,7 @@ def run_arch(arch: str, force: bool = False) -> dict:
             return json.load(f)
     cfg = unit_config(arch)
     fake_world(WORLDS["single"])
-    # the JAX package's "unrolled" WKV is its Python-loop scan, which the
-    # port's "scan" is
-    rec = measure_cell(dataclasses.replace(cfg, rwkv_impl="scan"),
-                       UNIT_SHAPE, make_production_mesh(),
+    rec = measure_cell(cfg, UNIT_SHAPE, make_production_mesh(),
                        OptConfig(grad_accum=1))
     measured = rec["flops"]
     knobs = PM.PerfKnobs(attention_tri=False, grad_accum=1, remat=True)

@@ -36,10 +36,10 @@ from ..kernels.rglru import rglru_scan
 from ..kernels.wkv6 import wkv6
 from . import layers as L
 from .config import ModelConfig, MoEConfig
-from .shard_ctx import (constrain, local_rows, rows_like, run_local,
-                        split_heads, tp_out)
+from .shard_ctx import (constrain, local_rows, merge_heads, rows_like,
+                        run_local, split_heads, tp_out)
 
-RWKV_IMPLS = ("scan", "chunked", "pallas")
+RWKV_IMPLS = ("scan", "chunked", "pallas", "unrolled")
 
 
 def _dense_init(gen: torch.Generator, shape, scale=None) -> torch.Tensor:
@@ -89,12 +89,14 @@ def init_attn(cfg: ModelConfig, gen: torch.Generator) -> dict:
     return p
 
 
-def head_kv_map(cfg: ModelConfig, device=None) -> torch.Tensor:
+def head_kv_map(cfg: ModelConfig) -> torch.Tensor:
     """Physical head → physical kv-head index, preserving the LOGICAL
-    GQA grouping for real heads (padded heads map to kv 0, masked)."""
+    GQA grouping for real heads (padded heads map to kv 0, masked); on
+    the host, where a sharded attention reads it to plan each rank's
+    heads (``layers._kv_heads``)."""
     groups = cfg.n_heads // cfg.n_kv_heads
-    idx = torch.zeros(cfg.phys_heads, dtype=torch.int64, device=device)
-    idx[:cfg.n_heads] = torch.arange(cfg.n_heads, device=device) // groups
+    idx = torch.zeros(cfg.phys_heads, dtype=torch.int64)
+    idx[:cfg.n_heads] = torch.arange(cfg.n_heads) // groups
     return idx
 
 
@@ -173,8 +175,7 @@ def apply_attn(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig,
     continues the ring seamlessly."""
     h = L.rms_norm(x, _c(p["ln"], cfg), cfg.norm_eps)
     q, k, v = _qkv(p, h, cfg)
-    kv_map = head_kv_map(cfg, x.device) \
-        if cfg.phys_heads != cfg.n_heads else None
+    kv_map = head_kv_map(cfg) if cfg.phys_heads != cfg.n_heads else None
     q = L.rope(q, ctx.positions, cfg.rope_theta)
     k = L.rope(k, ctx.positions, cfg.rope_theta)
     B, S = x.shape[:2]
@@ -220,7 +221,7 @@ def apply_attn(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig,
     hm = head_mask(cfg, out.dtype, x.device)
     if hm is not None:   # zero padded-head outputs → exact logical math
         out = out * hm[None, None, :, None]
-    return x + tp_out(out.reshape(B, S, -1) @ _c(p["wo"], cfg)), new_cache
+    return x + tp_out(merge_heads(out) @ _c(p["wo"], cfg)), new_cache
 
 
 def apply_cross_attn(p: dict, x: torch.Tensor, ctx: Ctx,
@@ -238,8 +239,7 @@ def apply_cross_attn(p: dict, x: torch.Tensor, ctx: Ctx,
     enc = ctx.enc_out
     k = split_heads(enc @ _c(p["wk"], cfg), KV, Dh)
     v = split_heads(enc @ _c(p["wv"], cfg), KV, Dh)
-    kv_map = head_kv_map(cfg, x.device) \
-        if cfg.phys_heads != cfg.n_heads else None
+    kv_map = head_kv_map(cfg) if cfg.phys_heads != cfg.n_heads else None
     impl = "naive" if enc.shape[1] <= cfg.attention_chunk \
         else cfg.attention_impl
     out = L.attention(q, k, v, ctx.positions, ctx.enc_pos, causal=False,
@@ -247,7 +247,7 @@ def apply_cross_attn(p: dict, x: torch.Tensor, ctx: Ctx,
     hm = head_mask(cfg, out.dtype, x.device)
     if hm is not None:
         out = out * hm[None, None, :, None]
-    return x + tp_out(out.reshape(B, S, -1) @ _c(p["wo"], cfg))
+    return x + tp_out(merge_heads(out) @ _c(p["wo"], cfg))
 
 
 # =============================================================================
@@ -629,7 +629,8 @@ def apply_rwkv(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig):
 
     The WKV runs, in the JAX package's branch order: the wkv6 kernel
     (``rwkv_impl="pallas"``, prefill, S a multiple of ``rwkv_chunk``);
-    else :func:`wkv_scan` in decode, for ``"scan"`` and for ragged S;
+    else :func:`wkv_scan` in decode, for ``"scan"`` and ``"unrolled"``
+    (the JAX package's Python-loop form of its scan) and for ragged S;
     else :func:`wkv_chunked`.  On sharded activations the
     recurrence runs on each rank's sequences and heads
     (``shard_ctx.run_local``)."""
@@ -665,8 +666,8 @@ def apply_rwkv(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig):
     else:
         state0 = cache.wkv if decode else torch.zeros(
             (B, H, Dh, Dh), dtype=torch.float32, device=x.device)
-        if ctx.mode == "decode" or cfg.rwkv_impl == "scan" or \
-                S % cfg.rwkv_chunk != 0 or S < cfg.rwkv_chunk:
+        if ctx.mode == "decode" or cfg.rwkv_impl in ("scan", "unrolled") \
+                or S % cfg.rwkv_chunk != 0 or S < cfg.rwkv_chunk:
             wkv = wkv_scan
         else:
             def wkv(*a):

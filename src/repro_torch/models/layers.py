@@ -20,8 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
-from .shard_ctx import (alike_steps, constrain, partial_over, run_local,
-                        tp_out)
+from .shard_ctx import (alike_steps, constrain, current_mesh, partial_over,
+                        run_local, tp_out)
 
 NEG_INF = -1e30
 
@@ -192,10 +192,13 @@ def attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     # then every (sequence, head) attends on its own: on each rank's
     # shards when sharded
     h = q.shape[2]
-    k = constrain(_expand_kv(k, h, kv_map), "batch", None, "model", None)
-    v = constrain(_expand_kv(v, h, kv_map), "batch", None, "model", None)
+    kv_spec, idx = _kv_heads(k, h, kv_map)
+    if idx is None:
+        k, v = _expand_kv(k, h, kv_map), _expand_kv(v, h, kv_map)
 
-    def core(q, k, v, q_pos, k_pos):
+    def core(q, k, v, q_pos, k_pos, idx):
+        if idx is not None:
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
         if impl == "naive" or q.shape[1] <= chunk:
             return (attention_naive(q, k, v, q_pos, k_pos, causal, window),)
         return (attention_chunked(q, k, v, q_pos, k_pos, causal, window,
@@ -203,8 +206,33 @@ def attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                                   triangular=impl == "chunked_tri"),)
 
     heads, rows = ("batch", None, "model", None), ("batch", None)
-    return run_local(core, (heads, heads, heads, rows, rows), (0,),
-                     q, k, v, q_pos, k_pos)[0]
+    return run_local(core, (heads, kv_spec, kv_spec, rows, rows, None), (0,),
+                     q, k, v, q_pos, k_pos, idx)[0]
+
+
+def _kv_heads(k, n_heads: int, kv_map=None):
+    """How a sharded attention expands K/V to the query heads on each
+    rank: (the logical spec K/V are pinned to, this rank's head → local
+    kv-head index).  K/V stay sharded over model where every rank's
+    query heads read only its own kv heads, else replicated; DTensor
+    cannot gather along a sharded head dim.  ``(None, None)`` outside a
+    sharded context (the caller expands whole)."""
+    from torch.distributed.tensor import DTensor
+    mesh = current_mesh()
+    if (mesh is None or getattr(mesh, "device_mesh", None) is None
+            or not isinstance(k, DTensor)):
+        return None, None
+    kv, tp = k.shape[2], mesh.shape.get("model", 1)
+    heads = torch.arange(n_heads)
+    idx = kv_map.cpu() if kv_map is not None else heads // (n_heads // kv)
+    if n_heads % tp:        # the query heads are replicated: all of them
+        return ("batch", None, None, None), idx.to(k.device)
+    per, rank = n_heads // tp, mesh.index("model") if tp > 1 else 0
+    mine = idx[rank * per:(rank + 1) * per]
+    if kv % tp == 0 and bool((idx // (kv // tp) == heads // per).all()):
+        return (("batch", None, "model", None),
+                (mine - rank * (kv // tp)).to(k.device))
+    return ("batch", None, None, None), mine.to(k.device)
 
 
 def _pallas_attention_ok(q, k, chunk, kv_map) -> bool:

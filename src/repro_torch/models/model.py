@@ -46,8 +46,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from . import blocks as B
 from . import layers as L
 from .config import ATTN, LOCAL_ATTN, RGLRU, RWKV, ModelConfig
-from .shard_ctx import (constrain, gathered, local_rows, partial_over,
-                        rows_like, tp_out)
+from .shard_ctx import (constrain, gathered, local_rows, merge_heads,
+                        partial_over, rows_like, tp_out)
 
 BLOCK_TYPES = (ATTN, LOCAL_ATTN, RGLRU, RWKV)
 REMAT_BLOCK = ("block", "block_save_coll")
@@ -233,8 +233,7 @@ def _encode(params, frames: torch.Tensor, cfg: ModelConfig,
     x = frames.to(B.compute_dtype(cfg))
     pos = torch.arange(x.shape[1], dtype=torch.int32,
                        device=x.device).expand(x.shape[:2])
-    kv_map = B.head_kv_map(cfg, x.device) \
-        if cfg.phys_heads != cfg.n_heads else None
+    kv_map = B.head_kv_map(cfg) if cfg.phys_heads != cfg.n_heads else None
     hm = B.head_mask(cfg, x.dtype, x.device)
 
     def body(x, lp):
@@ -245,8 +244,7 @@ def _encode(params, frames: torch.Tensor, cfg: ModelConfig,
                           kv_map=kv_map)
         if hm is not None:
             out = out * hm[None, None, :, None]
-        x = x + tp_out(out.reshape(*x.shape[:2], -1)
-                       @ B._c(lp["attn"]["wo"], cfg))
+        x = x + tp_out(merge_heads(out) @ B._c(lp["attn"]["wo"], cfg))
         return B.apply_mlp(lp["mlp"], x, cfg)
 
     remat = mode == "train" and cfg.remat == "block"

@@ -13,9 +13,10 @@ an ``activation_sharding(mesh)`` context and layers call
 * ``None``    → replicated.
 
 ``constrain`` redistributes a DTensor to the placements of that spec
-(``train.sharding.placements``).  It returns a plain tensor, or any
-tensor with no context installed, as it is, so every single-device path
-is unchanged.
+(``train.sharding.placements``), and places its gradient the same way,
+as JAX transposes a sharding constraint.  It returns a plain tensor, or
+any tensor with no context installed, as it is, so every single-device
+path is unchanged.
 
 The sharded train step also installs a parameter gather
 (:func:`param_gather`): the model passes each layer's parameters through
@@ -139,7 +140,8 @@ def logical_spec(shape, *logical, mesh=None, profile: Optional[str] = None
 
 def constrain(x, *logical):
     """Redistribute a DTensor ``x`` to the placements of its logical
-    spec when a mesh context is active; anything else as it is."""
+    spec when a mesh context is active, its gradient placed the same way
+    (:class:`_PinGrad`); anything else as it is."""
     mesh = current_mesh()
     if mesh is None:
         return x
@@ -148,9 +150,28 @@ def constrain(x, *logical):
         return x
     from ..train.sharding import placements
     want = placements(logical_spec(x.shape, *logical), mesh)
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(x.device_mesh, want)
+    if tuple(x.placements) != want:
+        x = x.redistribute(x.device_mesh, want)
+    return _PinGrad.apply(x) if x.requires_grad else x
+
+
+class _PinGrad(torch.autograd.Function):
+    """Identity forward; the backward places the gradient as the forward
+    value is placed (JAX transposes a sharding constraint into the same
+    constraint on the cotangent).  Without it a partial sum over model
+    flows back through a replicated activation, and DTensor gathers the
+    sharded operands of the products behind it instead of reducing it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(g.device_mesh, ctx.placements)
 
 
 def pinned(t, *logical):
@@ -210,7 +231,9 @@ def tp_out(x):
     """The output of a tensor-parallel contraction (the JAX package's
     ``"tp_out"`` name): pinned batch-sharded and replicated over model,
     so its all-reduce runs here, where the ``block_save_coll`` remat
-    policy sees it and keeps its output."""
+    policy sees it and keeps its output.  Its gradient is replicated over
+    model too, so both backward products of the contraction (weight and
+    input gradient) run on the rank's shards."""
     return constrain(x, "batch", *(None,) * (x.ndim - 1))
 
 
@@ -290,6 +313,19 @@ def split_heads(t, n: int, dh: int):
         t = constrain(t, "batch", None, None)
     return constrain(t.reshape(*t.shape[:2], n, dh),
                      "batch", None, "model", None)
+
+
+def merge_heads(t):
+    """(B, S, n, dh) → (B, S, n·dh), the input of a row-parallel output
+    projection.  Where n does not divide the model axis it is pinned
+    replicated: the product's input gradient comes back sharded over
+    n·dh, which DTensor cannot split back into n heads (the mirror of
+    :func:`split_heads`)."""
+    out = t.reshape(*t.shape[:2], -1)
+    mesh = current_mesh()
+    if mesh is not None and t.shape[2] % mesh.shape.get("model", 1):
+        out = constrain(out, "batch", None, None)
+    return out
 
 
 def constrain_heads(x):

@@ -1028,3 +1028,59 @@ def test_launch_train_over_the_world_on_card(card, tmp_path):
         dist.destroy_process_group()
     assert len(losses) == 2 and np.isfinite(losses).all()
     assert C.latest_step(str(tmp_path / "w" / "ckpt_rwkv6_1_6b")) == 1
+
+
+def _same_results(got, want, path="$"):
+    """Host values equal; floats within rtol=1e-5, atol=1e-7 (the
+    examples' device floats, another summation order)."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _same_results(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_results(g, w, f"{path}[{i}]")
+    elif isinstance(want, float):
+        assert np.isclose(got, want, rtol=1e-5, atol=1e-7), (path, got, want)
+    else:
+        assert got == want, (path, got, want)
+
+
+@pytest.mark.parametrize("name", ["quickstart", "pcap_analytics",
+                                  "pcap_pipeline", "train_packet_lm"])
+def test_example_on_card_equals_cpu(card, tmp_path, name):
+    """``repro_torch.examples.<name>.run`` on the card gives the CPU's
+    results (train_packet_lm: its first two losses within rtol=1e-5, as
+    chip_smoke's float32 smoke steps, then a falling loss and text) and
+    launches no hand-written kernel at the example's size."""
+    ex = importlib.import_module(f"repro_torch.examples.{name}")
+    params = None
+    if name == "train_packet_lm":   # one init for both devices
+        params = init_params(smoke_config("rwkv6-1.6b"),
+                             torch.Generator().manual_seed(0))
+
+    def run(dev):
+        if name in ("quickstart", "pcap_analytics"):
+            return ex.run()
+        kw = {"workdir": str(tmp_path / dev.type)}
+        if params is not None:
+            kw["params"] = to_device(params, dev)
+        return ex.run(**kw)
+
+    ops.reset_launches()
+    got = run(card)
+    assert not any(ops.kernel_launches().values())
+    set_device("cpu")
+    want = run(torch.device("cpu"))
+    set_device("cuda")
+    if name == "train_packet_lm":
+        np.testing.assert_allclose(got["losses"][:2], want["losses"][:2],
+                                   rtol=1e-5)
+        assert np.isfinite(got["losses"]).all()
+        assert np.mean(got["losses"][-5:]) < np.mean(got["losses"][:5])
+        assert isinstance(got["outs"][0], str)
+        return
+    got.pop("workdir", None)
+    want.pop("workdir", None)
+    _same_results(got, want)

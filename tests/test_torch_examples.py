@@ -1,23 +1,36 @@
-"""The first milestone: the call sequences of ``examples/pcap_analytics.py``
-and ``examples/pcap_pipeline.py``, at the examples' own configurations,
-through the port and through the JAX package, with the same answers.
+"""The first milestone: the port's examples (``repro_torch.examples``)
+against the call sequences of the JAX package's ``examples/``, at the
+examples' own configurations, with the same answers.
 
-Host results (field statistics and correlated pairs, detector hosts,
-scan sources, connection counts, stage bytes, entries) must be equal
-exactly; device floats (the rank-size fit, C2 scores, PageRank) within
-rtol=1e-5, atol=1e-7.  The analytics run on the memory and the LSM
-backend, as the example offers both."""
+Each port example's ``run`` gives its results as plain values; the JAX
+side runs the reference example's calls here.  Host results (tables,
+field statistics and correlated pairs, detector hosts, scan sources,
+connection counts, stage bytes, entries) must be equal exactly; device
+floats (the rank-size fit, C2 scores, PageRank) within rtol=1e-5,
+atol=1e-7.  The analytics run on the memory and the LSM backend, as the
+example offers both.  Each example's ``main`` prints its results and
+closing line from ``run``'s values; quickstart's printed lines equal the
+reference script's."""
+import contextlib
 import glob
 import importlib
+import io
 import os
+import runpy
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 from repro_torch.device import set_device
+from repro_torch.examples import (pcap_analytics, pcap_pipeline, quickstart,
+                                  train_packet_lm)
+from repro_torch.models import params_from_jax
 
 RTOL, ATOL = 1e-5, 1e-7
 PACKAGES = ("repro_torch", "repro")
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -31,11 +44,63 @@ def mod(pkg, name):
     return importlib.import_module(f"{pkg}.{name}")
 
 
-def analytics_example(pkg, backend, path):
-    """``examples/pcap_analytics.py``'s calls, results as plain values."""
-    analytics, core, db = mod(pkg, "analytics"), mod(pkg, "core"), \
-        mod(pkg, "db")
-    pipeline, pcap = mod(pkg, "pipeline"), mod(pkg, "pipeline.pcap")
+def printed(example, results, monkeypatch, *args) -> str:
+    """What an example module's ``main`` prints for ``results`` (its
+    ``run`` replaced by one that returns them)."""
+    monkeypatch.setattr(example, "run", lambda *a, **k: results)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        example.main(*args)
+    return out.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# examples/quickstart.py
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def quickstart_runs():
+    """The port's ``run`` and printed lines, the reference script's
+    globals and printed lines."""
+    prev = set_device("cpu")
+    got = quickstart.run()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        quickstart.main()
+    set_device(prev)
+    ref, path = io.StringIO(), list(sys.path)
+    try:
+        with contextlib.redirect_stdout(ref):
+            g = runpy.run_path(str(ROOT / "examples" / "quickstart.py"))
+    finally:
+        sys.path[:] = path          # the script puts src/ first
+    return got, out.getvalue(), g, ref.getvalue()
+
+
+class TestQuickstart:
+    def test_tables_exact(self, quickstart_runs):
+        got, _, g, _ = quickstart_runs
+        assert [got[k] for k in ("dense", "incidence", "connections",
+                                 "adjacency", "degree")] == \
+            [str(g[k]) for k in ("A", "E", "conns", "Adj", "deg")]
+        assert got["src_nnz"] == g["src_block"].nnz
+        assert got["edges"] == list(zip(*g["heavy"].triples()[:2]))
+
+    def test_pagerank(self, quickstart_runs):
+        got, _, g, _ = quickstart_runs
+        np.testing.assert_allclose(got["pagerank"], np.asarray(g["pr"]),
+                                   rtol=RTOL, atol=ATOL)
+
+    def test_printed_lines_equal_the_reference(self, quickstart_runs):
+        _, lines, _, ref = quickstart_runs
+        assert lines == ref
+
+
+def analytics_example(backend, path):
+    """``examples/pcap_analytics.py``'s calls through the JAX package,
+    results as ``repro_torch.examples.pcap_analytics.run`` gives them."""
+    from repro import analytics, core, db, pipeline
+    from repro.pipeline import pcap
     traffic = pipeline.TrafficConfig(n_hosts=512, pkt_rate=400.0, n_bots=16,
                                      beacon_period_s=4.0, seed=7)
     T = db.DB("Tedge", "TedgeT", "TedgeDeg", backend=backend, path=path,
@@ -66,7 +131,7 @@ def analytics_example(pkg, backend, path):
         + (touched.logical().T * T[:, "ip.src|*,"])
     out["connections_nnz"] = conns.eval().nnz
     hosts, pr = analytics.distributed.pagerank_table(T, num_iters=30)
-    pr = np.asarray(pr.cpu() if hasattr(pr, "cpu") else pr, np.float64)
+    pr = np.asarray(pr, np.float64)
     top = np.argsort(pr)[::-1][:5]
     out["pagerank"] = ([str(hosts[i]) for i in top], pr[top].tolist())
     T.close()
@@ -76,11 +141,11 @@ def analytics_example(pkg, backend, path):
 @pytest.fixture(scope="module", params=["memory", "lsm"])
 def analytics_runs(request, tmp_path_factory):
     prev = set_device("cpu")
-    out = {}
-    for pkg in PACKAGES:
-        path = (str(tmp_path_factory.mktemp(f"{pkg}_lsm"))
-                if request.param == "lsm" else None)
-        out[pkg] = analytics_example(pkg, request.param, path)
+    path = {pkg: (str(tmp_path_factory.mktemp(f"{pkg}_lsm"))
+                  if request.param == "lsm" else None) for pkg in PACKAGES}
+    out = {"repro_torch": pcap_analytics.run(request.param,
+                                             path["repro_torch"]),
+           "repro": analytics_example(request.param, path["repro"])}
     set_device(prev)
     return out
 
@@ -115,6 +180,16 @@ class TestAnalyticsExample:
         assert keys == jkeys
         np.testing.assert_allclose(ranks, jranks, rtol=RTOL, atol=ATOL)
 
+    def test_main_prints_the_c2_line(self, analytics_runs, monkeypatch):
+        got = analytics_runs["repro_torch"]
+        text = printed(pcap_analytics, got, monkeypatch,
+                       [got["backend"]] + ([got["path"]] if got["path"]
+                                           else []))
+        c2 = got["c2_truth"]
+        assert f"  candidate {c2:16s} score=" in text
+        assert text.rstrip().splitlines()[-6] == "top PageRank hosts:"
+        assert "reopened" not in text
+
 
 class TestDimensional:
     """The four functions of ``analytics.dimensional`` on small seeded
@@ -145,11 +220,11 @@ class TestDimensional:
         assert out["repro"][0] == ["ip.dst", "ip.src", "tcp.dstport"]
 
 
-def pipeline_example(pkg, workdir):
-    """``examples/pcap_pipeline.py``'s calls, results as plain values."""
-    pipeline, db = mod(pkg, "pipeline"), mod(pkg, "db")
-    Assoc = mod(pkg, "core.assoc").Assoc
-    analytics = mod(pkg, "analytics")
+def pipeline_example(workdir):
+    """``examples/pcap_pipeline.py``'s calls through the JAX package,
+    results as ``repro_torch.examples.pcap_pipeline.run`` gives them."""
+    from repro import analytics, db, pipeline
+    from repro.core.assoc import Assoc
     traffic = pipeline.TrafficConfig(n_hosts=256, pkt_rate=150.0, n_bots=12,
                                      beacon_period_s=5.0, seed=42)
     cfg = pipeline.PipelineConfig(workdir=workdir, n_files=2,
@@ -180,8 +255,9 @@ def pipeline_example(pkg, workdir):
 @pytest.fixture(scope="module")
 def pipeline_runs(tmp_path_factory):
     prev = set_device("cpu")
-    out = {pkg: pipeline_example(pkg, str(tmp_path_factory.mktemp(pkg)))
-           for pkg in PACKAGES}
+    out = {"repro_torch": pcap_pipeline.run(
+               str(tmp_path_factory.mktemp("repro_torch"))),
+           "repro": pipeline_example(str(tmp_path_factory.mktemp("repro")))}
     set_device(prev)
     return out
 
@@ -199,6 +275,13 @@ class TestPipelineExample:
         np.testing.assert_allclose(got["scores"], want["scores"], rtol=RTOL,
                                    atol=ATOL)
 
+    def test_main_prints_the_closing_line(self, pipeline_runs, monkeypatch):
+        text = printed(pcap_pipeline, pipeline_runs["repro_torch"],
+                       monkeypatch)
+        assert "  <-- injected C2" in text
+        assert text.rstrip().endswith(
+            "injected C2 recovered from the traffic. pipeline complete.")
+
 
 # ---------------------------------------------------------------------------
 # examples/train_packet_lm.py
@@ -208,42 +291,29 @@ TRAIN_STEPS = 30
 STEP0_RTOL = 1e-3       # the examples' shared tolerance for step 0's loss
 
 
-def train_example(pkg, workdir, jax_params):
-    """``examples/train_packet_lm.py``'s calls at its own config, from the
-    JAX package's seeded parameters (carried across for the port); the
-    losses and the generated text."""
-    configs, data = mod(pkg, "configs"), mod(pkg, "data")
-    serve, train = mod(pkg, "launch.serve"), mod(pkg, "launch.train")
-    T = mod(pkg, "train")
+def train_example(workdir, jax_params):
+    """``examples/train_packet_lm.py``'s calls through the JAX package at
+    its own config, from its seeded parameters; the losses and the
+    generated text, as ``repro_torch.examples.train_packet_lm.run``
+    gives them."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs, data
+    from repro import train as T
+    from repro.launch import serve, train
+    from repro.launch.mesh import make_smoke_mesh
     pattern = train.synth_corpus(os.path.join(workdir, "data"), n_files=2)
     stream = data.TokenStream(pattern, seq_len=128, batch=4)
     cfg = configs.smoke_config("rwkv6-1.6b")
     opt = T.OptConfig(lr=1e-3, warmup_steps=5)
-    if pkg == "repro":
-        import jax
-        import jax.numpy as jnp
-        params = jax.tree.map(jnp.asarray, jax_params)
-        step_fn = jax.jit(T.make_train_step(cfg, opt,
-                                            mod(pkg, "launch.mesh")
-                                            .make_smoke_mesh(1)))
-
-        def batch_of(b):
-            return {k: jnp.minimum(jnp.asarray(v), cfg.vocab - 1)
-                    for k, v in b.items()}
-    else:
-        import torch
-        params = mod(pkg, "models").params_from_jax(cfg, jax_params, "cpu")
-        step_fn = T.make_train_step(cfg, opt, mod(pkg, "launch.mesh")
-                                    .make_smoke_mesh(1))
-
-        def batch_of(b):
-            return {k: torch.from_numpy(np.minimum(v, cfg.vocab - 1))
-                    for k, v in b.items()}
+    params = jax.tree.map(jnp.asarray, jax_params)
+    step_fn = jax.jit(T.make_train_step(cfg, opt, make_smoke_mesh(1)))
     opt_state = T.adamw_init(params)
     losses = []
     for _ in range(TRAIN_STEPS):
-        params, opt_state, m = step_fn(params, opt_state,
-                                       batch_of(stream.next_batch()))
+        batch = {k: jnp.minimum(jnp.asarray(v), cfg.vocab - 1)
+                 for k, v in stream.next_batch().items()}
+        params, opt_state, m = step_fn(params, opt_state, batch)
         losses.append(float(m["loss"]))
     outs = serve.generate(cfg, params, ["64.22."], max_new=24, s_max=192)
     return {"losses": losses, "outs": outs}
@@ -257,8 +327,12 @@ def train_runs(tmp_path_factory):
     prev = set_device("cpu")
     jax_params = jax.tree.map(np.asarray, init_params(
         smoke_config("rwkv6-1.6b"), jax.random.key(0)))
-    out = {pkg: train_example(pkg, str(tmp_path_factory.mktemp(pkg)),
-                              jax_params) for pkg in PACKAGES}
+    cfg = smoke_config("rwkv6-1.6b")
+    out = {"repro_torch": train_packet_lm.run(
+               str(tmp_path_factory.mktemp("repro_torch")),
+               params_from_jax(cfg, jax_params, "cpu")),
+           "repro": train_example(str(tmp_path_factory.mktemp("repro")),
+                                  jax_params)}
     set_device(prev)
     return out
 
@@ -278,3 +352,10 @@ class TestTrainExample:
     def test_generate_returns_text(self, train_runs):
         outs = train_runs["repro_torch"]["outs"]
         assert len(outs) == 1 and isinstance(outs[0], str)
+
+    def test_main_prints_the_closing_line(self, train_runs, monkeypatch):
+        text = printed(train_packet_lm, train_runs["repro_torch"],
+                       monkeypatch)
+        assert text.startswith("step   0  loss ")
+        assert text.rstrip().endswith(
+            "trained on pipeline output; loss improved. done.")

@@ -285,3 +285,33 @@ def test_launch_tooling_imports_with_jax_and_reference_blocked(module):
     out = subprocess.run([sys.executable, "-c", script], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("name", ["quickstart", "pcap_analytics",
+                                  "pcap_pipeline", "train_packet_lm"])
+def test_examples_import_with_jax_and_reference_blocked(tmp_path, name):
+    """``repro_torch.examples``: each module imports with jax and the JAX
+    package unimportable, pulls in neither and builds nothing;
+    ``python -m repro_torch.examples.quickstart`` runs to its PageRank
+    line on the CPU so."""
+    boot = tmp_path / "boot.py"
+    boot.write_text(textwrap.dedent(f"""
+        import importlib, runpy, sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        importlib.import_module("repro_torch.examples.{name}")
+        if {name!r} == "quickstart":
+            runpy.run_module("repro_torch.examples.quickstart",
+                             run_name="__main__")
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        from repro_torch.kernels import ops
+        assert not ops._LIBS
+    """))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_DEVICE="cpu")
+    out = subprocess.run([sys.executable, str(boot)], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    if name == "quickstart":
+        assert out.stdout.splitlines()[-1].startswith("pagerank: [")

@@ -215,11 +215,32 @@ def test_other_families_raise(arch):
 
 
 def test_unrolled_impl_raises(weights):
+    """``rwkv_impl="unrolled"`` raises nothing: its prefill (the JAX
+    package's Python-loop WKV, the port's ``wkv_scan``) and a decode
+    step after it (``wkv_scan`` in both) equal the JAX package's, and an
+    unknown impl still raises."""
     cfg, tree = weights
     cfg = with_impl(cfg, "unrolled")
-    toks = torch.from_numpy(tokens(cfg, 1, 8, seed=2))
+    B, S = 2, 12
+    toks = tokens(cfg, B, S + 1, seed=2)
+    jp, pp = jax_params(tree), params_from_jax(cfg, tree)
+    jl, jc = JM.prefill(jp, {"tokens": jnp.asarray(toks[:, :S])}, cfg,
+                        s_max=S + 4)
+    pl_, pc = PM.prefill(pp, {"tokens": torch.from_numpy(toks[:, :S])}, cfg,
+                         s_max=S + 4)
+    close(pl_, jl, LIKE_TOL)
+    close_caches(pc, jc, LIKE_TOL)
+    pos = np.full((B, 1), S, np.int32)
+    jl, jc = JM.decode_step(jp, jc, {"tokens": jnp.asarray(toks[:, S:]),
+                                     "positions": jnp.asarray(pos)}, cfg)
+    pl_, pc = PM.decode_step(pp, pc, {"tokens": torch.from_numpy(toks[:, S:]),
+                                      "positions": torch.from_numpy(pos)},
+                             cfg)
+    close(pl_, jl, LIKE_TOL)
+    close_caches(pc, jc, LIKE_TOL)
     with pytest.raises(NotImplementedError):
-        PM.prefill(params_from_jax(cfg, tree), {"tokens": toks}, cfg, 16)
+        PM.prefill(pp, {"tokens": torch.from_numpy(toks[:, :S])},
+                   with_impl(cfg, "loop"), S + 4)
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +297,8 @@ def test_kernel_branch_order(weights, monkeypatch):
     cases = [("pallas", 4 * chunk, cfg.n_layers), ("pallas", chunk,
                                                    cfg.n_layers),
              ("pallas", 3 * chunk + 1, 0), ("pallas", chunk - 1, 0),
-             ("chunked", 4 * chunk, 0), ("scan", 4 * chunk, 0)]
+             ("chunked", 4 * chunk, 0), ("scan", 4 * chunk, 0),
+             ("unrolled", 4 * chunk, 0)]
     for impl, S, want in cases:
         c = with_impl(cfg, impl)
         calls.clear()

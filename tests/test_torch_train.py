@@ -177,6 +177,24 @@ def test_loss_and_grads_match(arch, loss_chunk):
                 jax.tree.map(np.asarray, jg))
 
 
+def test_unrolled_wkv_loss_and_grads_match():
+    """``rwkv_impl="unrolled"`` in training: the JAX package's
+    Python-loop WKV against the port's ``wkv_scan``, loss and gradients
+    at the tolerances above."""
+    cfg, tree = weights("rwkv6-1.6b")
+    cfg = dataclasses.replace(cfg, rwkv_impl="unrolled")
+    nb = batch(cfg, seed=4)
+    jl, jg = jax.value_and_grad(JM.loss_fn)(
+        jax.tree.map(jnp.asarray, tree), jx(nb), cfg)
+    params = params_from_jax(cfg, tree, device="cpu")
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    loss = PM.loss_fn(params, pt(nb), cfg)
+    close(loss.detach(), jl, LOSS_TOL)
+    grads = torch.autograd.grad(loss, leaves)
+    close_grads(cfg, tree_unflatten(params, list(grads)),
+                jax.tree.map(np.asarray, jg))
+
+
 def test_remat_block_equals_none():
     cfg, tree = weights("recurrentgemma-9b")
     nb = pt(batch(cfg, seed=4))
