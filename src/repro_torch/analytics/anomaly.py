@@ -30,6 +30,7 @@ import torch
 from ..core.assoc import Assoc, StartsWith
 from ..core.expr import LazyAssoc
 from ..core.sparse import to_device
+from ..obs.trace import span as _span
 from . import powerlaw
 from .serialize import JsonReportMixin
 
@@ -107,84 +108,93 @@ def c2_scores(E: Queryable, sep: str = "|") -> C2Scores:
     windowed sub-:class:`Assoc` (the streaming path: the rollup hands a
     window slice straight to this, no table rescan).  Returns the whole
     score table, unsorted."""
+    with _span("analytics.c2_scores"):
+        return _c2_scores(E, sep)
+
+
+def _c2_scores(E: Queryable, sep: str) -> C2Scores:
     Edst = E[:, StartsWith(f"ip.dst{sep}")]
     Esrc = E[:, StartsWith(f"ip.src{sep}")]
     Etime = E[:, StartsWith(f"frame.time{sep}")]
     Eport = E[:, StartsWith(f"tcp.dstport{sep}")]
 
     # unique-source fan-in: (src × dst) support, column sums of spones
-    SD = Esrc.T * Edst                       # src × dst packet counts
-    fanin_a = SD.logical().sum(0)            # 1 × dst: distinct sources
-    dst_keys = _strip(fanin_a.col, f"ip.dst{sep}")
-    fanin = np.zeros(dst_keys.shape[0])
-    _, c, v = fanin_a.triples()
-    fanin[np.searchsorted(fanin_a.col, c)] = np.asarray(v, np.float64)
+    with _span("analytics.c2.fanin"):
+        SD = Esrc.T * Edst                   # src × dst packet counts
+        fanin_a = SD.logical().sum(0)        # 1 × dst: distinct sources
+        dst_keys = _strip(fanin_a.col, f"ip.dst{sep}")
+        fanin = np.zeros(dst_keys.shape[0])
+        _, c, v = fanin_a.triples()
+        fanin[np.searchsorted(fanin_a.col, c)] = np.asarray(v, np.float64)
 
     # source-uniformity: bots all contact the C2 a similar number of
     # times (duration/period each), while a popular host's sources have
     # heavy-tailed counts — CV over per-source counts separates them
     # even when beacons are too slow for time-bucket regularity.
-    src_uniform = np.zeros(dst_keys.shape[0])
-    r_sd, c_sd, v_sd = SD.triples()
-    v_sd = np.asarray(v_sd, np.float64)
-    if r_sd.shape[0]:
-        uniq_d, inv_d = np.unique(c_sd, return_inverse=True)
-        cnt = np.bincount(inv_d)
-        s1 = np.bincount(inv_d, weights=v_sd)
-        s2 = np.bincount(inv_d, weights=v_sd * v_sd)
-        mean = s1 / cnt
-        var = np.maximum(s2 / cnt - mean ** 2, 0.0)
-        cv_s = np.sqrt(var) / np.maximum(mean, 1e-9)
-        pos = _keymap(_strip(uniq_d, f"ip.dst{sep}"), dst_keys)
-        ok = pos >= 0
-        # only meaningful with several sources and repeated contacts
-        score_s = np.exp(-cv_s) * (cnt >= 4) * (mean >= 2)
-        src_uniform[pos[ok]] = score_s[ok]
+    with _span("analytics.c2.uniform"):
+        src_uniform = np.zeros(dst_keys.shape[0])
+        r_sd, c_sd, v_sd = SD.triples()
+        v_sd = np.asarray(v_sd, np.float64)
+        if r_sd.shape[0]:
+            uniq_d, inv_d = np.unique(c_sd, return_inverse=True)
+            cnt = np.bincount(inv_d)
+            s1 = np.bincount(inv_d, weights=v_sd)
+            s2 = np.bincount(inv_d, weights=v_sd * v_sd)
+            mean = s1 / cnt
+            var = np.maximum(s2 / cnt - mean ** 2, 0.0)
+            cv_s = np.sqrt(var) / np.maximum(mean, 1e-9)
+            pos = _keymap(_strip(uniq_d, f"ip.dst{sep}"), dst_keys)
+            ok = pos >= 0
+            # only meaningful with several sources and repeated contacts
+            score_s = np.exp(-cv_s) * (cnt >= 4) * (mean >= 2)
+            src_uniform[pos[ok]] = score_s[ok]
 
     # beacon regularity: dst × time-bucket contact counts
-    DT = Edst.T * Etime                      # dst × seconds
-    dt_rows = _strip(DT.row, f"ip.dst{sep}")
-    support = np.zeros(dst_keys.shape[0])
-    cv = np.ones(dst_keys.shape[0]) * 10.0   # high CV = irregular
-    r, c, v = DT.triples()
-    v = np.asarray(v, np.float64)
-    if r.shape[0]:
-        uniq, inv = np.unique(r, return_inverse=True)
-        cnt = np.bincount(inv)
-        s1 = np.bincount(inv, weights=v)
-        s2 = np.bincount(inv, weights=v * v)
-        mean = s1 / cnt
-        var = np.maximum(s2 / cnt - mean ** 2, 0.0)
-        cv_u = np.sqrt(var) / np.maximum(mean, 1e-9)
-        pos = _keymap(_strip(uniq, f"ip.dst{sep}"), dst_keys)
-        ok = pos >= 0
-        support[pos[ok]] = cnt[ok]
-        cv[pos[ok]] = cv_u[ok]
-    # regular = contacted in many buckets with near-constant rate; slow
-    # beacons (period ≫ bucket) are caught by source-uniformity instead
-    total_buckets = max(len(DT.col), 1)
-    regularity = np.maximum((support / total_buckets) * np.exp(-cv),
-                            src_uniform)
+    with _span("analytics.c2.beacon"):
+        DT = Edst.T * Etime                  # dst × seconds
+        support = np.zeros(dst_keys.shape[0])
+        cv = np.ones(dst_keys.shape[0]) * 10.0   # high CV = irregular
+        r, c, v = DT.triples()
+        v = np.asarray(v, np.float64)
+        if r.shape[0]:
+            uniq, inv = np.unique(r, return_inverse=True)
+            cnt = np.bincount(inv)
+            s1 = np.bincount(inv, weights=v)
+            s2 = np.bincount(inv, weights=v * v)
+            mean = s1 / cnt
+            var = np.maximum(s2 / cnt - mean ** 2, 0.0)
+            cv_u = np.sqrt(var) / np.maximum(mean, 1e-9)
+            pos = _keymap(_strip(uniq, f"ip.dst{sep}"), dst_keys)
+            ok = pos >= 0
+            support[pos[ok]] = cnt[ok]
+            cv[pos[ok]] = cv_u[ok]
+        # regular = contacted in many buckets with near-constant rate;
+        # slow beacons (period ≫ bucket) are caught by source-uniformity
+        total_buckets = max(len(DT.col), 1)
+        regularity = np.maximum((support / total_buckets) * np.exp(-cv),
+                                src_uniform)
 
     # port concentration: dst × port counts, Herfindahl index
-    DP = Edst.T * Eport
-    conc = np.zeros(dst_keys.shape[0])
-    total_pkts = np.zeros(dst_keys.shape[0])
-    r, c, v = DP.triples()
-    v = np.asarray(v, np.float64)
-    if r.shape[0]:
-        uniq, inv = np.unique(r, return_inverse=True)
-        tot = np.bincount(inv, weights=v)
-        h = np.bincount(inv, weights=v * v) / np.maximum(tot ** 2, 1e-9)
-        pos = _keymap(_strip(uniq, f"ip.dst{sep}"), dst_keys)
-        ok = pos >= 0
-        conc[pos[ok]] = h[ok]
-        total_pkts[pos[ok]] = tot[ok]
+    with _span("analytics.c2.ports"):
+        DP = Edst.T * Eport
+        conc = np.zeros(dst_keys.shape[0])
+        total_pkts = np.zeros(dst_keys.shape[0])
+        r, c, v = DP.triples()
+        v = np.asarray(v, np.float64)
+        if r.shape[0]:
+            uniq, inv = np.unique(r, return_inverse=True)
+            tot = np.bincount(inv, weights=v)
+            h = np.bincount(inv, weights=v * v) / np.maximum(tot ** 2, 1e-9)
+            pos = _keymap(_strip(uniq, f"ip.dst{sep}"), dst_keys)
+            ok = pos >= 0
+            conc[pos[ok]] = h[ok]
+            total_pkts[pos[ok]] = tot[ok]
 
-    fused = _fuse(to_device(fanin, torch.float32),
-                  to_device(regularity, torch.float32),
-                  to_device(conc, torch.float32),
-                  to_device(total_pkts, torch.float32)).cpu().numpy()
+    with _span("analytics.c2.fuse"):
+        fused = _fuse(to_device(fanin, torch.float32),
+                      to_device(regularity, torch.float32),
+                      to_device(conc, torch.float32),
+                      to_device(total_pkts, torch.float32)).cpu().numpy()
     return C2Scores(dst_keys, fused, fanin, regularity, conc)
 
 

@@ -19,6 +19,7 @@ import torch.distributed as dist
 from ..core import semiring as sr
 from ..core.sparse import COO
 from ..device import get_device
+from ..obs.trace import span as _span
 
 
 def shard_coo(m: COO, n_shards: int) -> COO:
@@ -129,27 +130,46 @@ def pagerank_table(T, mesh=None, num_iters: int = 20,
     PageRank); ``reverse`` transposes the adjacency first, so mass flows
     from a seed *victim* back to the hosts feeding it traffic — the
     MicroRCA root-cause direction.
+
+    Traced, the call records ``analytics.pagerank_table`` with four
+    children: ``.adjacency`` (the band scans through the planner, the
+    key strip and the ``Assoc`` build), ``.square``, ``.upload``
+    (``device_coo``) and ``.iterate``.  On a card ``.iterate`` times the
+    host's enqueue of the iterations, not the device's work on them:
+    the ranks come back unsynchronized.
     """
+    with _span("analytics.pagerank_table"):
+        return _pagerank_table(T, mesh, num_iters, src_field, dst_field,
+                               sep, axis, personalize, reverse, damping)
+
+
+def _pagerank_table(T, mesh, num_iters, src_field, dst_field, sep, axis,
+                    personalize, reverse, damping):
     from ..core import graph
 
-    E = T[:, f"{src_field}{sep}*,"] + T[:, f"{dst_field}{sep}*,"]
-    adj = graph.square(graph.adjacency(
-        E, src_field=src_field, dst_field=dst_field, sep=sep))
+    with _span("analytics.pagerank.adjacency"):
+        E = T[:, f"{src_field}{sep}*,"] + T[:, f"{dst_field}{sep}*,"]
+        A = graph.adjacency(E, src_field=src_field, dst_field=dst_field,
+                            sep=sep)
+    with _span("analytics.pagerank.square"):
+        adj = graph.square(A)
+        if reverse:
+            adj = adj.T
     if adj.nnz == 0:
         return np.empty((0,), dtype=str), torch.zeros(
             0, dtype=torch.float32, device=get_device())
-    if reverse:
-        adj = adj.T
-    coo = adj.device_coo(torch.float32)
-    p = None
-    if personalize is not None:
-        w = np.zeros(adj.row.shape[0], np.float32)
-        pos = np.searchsorted(adj.row, list(personalize))
-        for k, i in zip(personalize, pos):
-            if i < adj.row.shape[0] and adj.row[i] == k:
-                w[i] = float(personalize[k])
-        if w.sum() > 0:             # else no seed present — uniform restart
-            p = torch.from_numpy(w).to(coo.device)
-    ranks = pagerank_sharded(coo, mesh, num_iters=num_iters, axis=axis,
-                             personalize=p, damping=damping)
+    with _span("analytics.pagerank.upload"):
+        coo = adj.device_coo(torch.float32)
+        p = None
+        if personalize is not None:
+            w = np.zeros(adj.row.shape[0], np.float32)
+            pos = np.searchsorted(adj.row, list(personalize))
+            for k, i in zip(personalize, pos):
+                if i < adj.row.shape[0] and adj.row[i] == k:
+                    w[i] = float(personalize[k])
+            if w.sum() > 0:         # else no seed present — uniform restart
+                p = torch.from_numpy(w).to(coo.device)
+    with _span("analytics.pagerank.iterate"):
+        ranks = pagerank_sharded(coo, mesh, num_iters=num_iters, axis=axis,
+                                 personalize=p, damping=damping)
     return adj.row, ranks

@@ -17,6 +17,7 @@ import torch
 
 from ..core import semiring as sr
 from ..core.sparse import to_device
+from ..obs.trace import span as _span
 from .serialize import JsonReportMixin
 
 
@@ -80,10 +81,12 @@ def fit_degree_table(T, prefix: str = "ip.dst|") -> PowerLawFit:
     :class:`~repro_torch.db.binding.DBTable` binding — no incidence-matrix
     materialization, which is how the paper sizes the background model
     at ingest rates."""
-    deg = T.degree_assoc(prefix)
-    if deg.nnz == 0:
-        return fit_rank_size(to_device(np.zeros(1, np.float32)))
-    return fit_rank_size(to_device(np.asarray(deg.triples()[2], np.float32)))
+    with _span("analytics.fit_degree_table"):
+        deg = T.degree_assoc(prefix)
+        if deg.nnz == 0:
+            return fit_rank_size(to_device(np.zeros(1, np.float32)))
+        return fit_rank_size(to_device(np.asarray(deg.triples()[2],
+                                                  np.float32)))
 
 
 def background_scores(degrees: torch.Tensor) -> torch.Tensor:

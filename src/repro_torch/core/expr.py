@@ -71,38 +71,19 @@ _KERNEL_COUNTERS = {
 }
 
 
-class _LaunchView:
-    """Read-only mapping over the launch counters — the compatibility
-    shim for code that indexed the old ``KERNEL_LAUNCHES`` dict."""
-
-    def __getitem__(self, k: str) -> int:
-        return _KERNEL_COUNTERS[k].value
-
-    def __iter__(self):
-        return iter(_KERNEL_COUNTERS)
-
-    def __len__(self):
-        return len(_KERNEL_COUNTERS)
-
-    def keys(self):
-        return _KERNEL_COUNTERS.keys()
-
-    def items(self):
-        return [(k, c.value) for k, c in _KERNEL_COUNTERS.items()]
-
-    def __repr__(self):
-        return f"KERNEL_LAUNCHES{dict(self.items())!r}"
-
-
-KERNEL_LAUNCHES = _LaunchView()
-
-
 def launch_counts() -> dict:
     """Snapshot of the device launch counters (copy — safe to diff)."""
     return {k: c.value for k, c in _KERNEL_COUNTERS.items()}
 
+
 _FUSABLE = frozenset({"logical", "filter", "scale", "shift"})
 _ELEMENTWISE_BIN = frozenset({"add", "sub", "emul"})
+
+# the span each executed node records (a chain of _FUSABLE ops runs as
+# one pass, so it records one "fused" span); leaves record nothing
+_EXEC_SPANS = {op: f"planner.exec.{op}" for op in (
+    "scan", "select", "transpose", "add", "sub", "emul", "matmul", "sum")}
+_EXEC_SPANS.update(dict.fromkeys(_FUSABLE, "planner.exec.fused"))
 
 
 def _is_all(sel) -> bool:
@@ -406,6 +387,17 @@ class _Executor:
         op = node.op
         if op == "leaf":
             return node.args["assoc"]
+        name = _EXEC_SPANS.get(op)
+        if name is None:
+            raise ValueError(f"unknown op {op!r}")
+        with _span(name) as sp:
+            out = self._exec_op(node, sp)
+            if sp.live:
+                sp.tag(nnz=int(out.nnz), shape=list(out.shape))
+        return out
+
+    def _exec_op(self, node: LazyAssoc, sp) -> Assoc:
+        op = node.op
         if op == "scan":
             return node.args["table"]._scan(node.args["rsel"],
                                             node.args["csel"])
@@ -419,7 +411,7 @@ class _Executor:
         if op == "transpose":
             return self.run(node.children[0]).transpose()
         if op in _FUSABLE:
-            return self._exec_fused(node)
+            return self._exec_fused(node, sp)
         if op == "add":
             return self.run(node.children[0]) + self.run(node.children[1])
         if op == "sub":
@@ -428,13 +420,11 @@ class _Executor:
             return self.run(node.children[0]).multiply(
                 self.run(node.children[1]))
         if op == "matmul":
-            return self._exec_matmul(node)
-        if op == "sum":
-            return self._exec_sum(node)
-        raise ValueError(f"unknown op {op!r}")
+            return self._exec_matmul(node, sp)
+        return self._exec_sum(node, sp)
 
     # -- elementwise fusion ------------------------------------------------
-    def _exec_fused(self, node: LazyAssoc) -> Assoc:
+    def _exec_fused(self, node: LazyAssoc, sp) -> Assoc:
         """Collapse a unary elementwise chain into one pass over the csr
         payload: no per-stage Assoc rebuild, one compaction at the end."""
         chain = []
@@ -444,6 +434,8 @@ class _Executor:
             cur = cur.children[0]
         base = self.run(cur)
         ops = chain[::-1]  # innermost first
+        if sp.live:
+            sp.tag(ops=[o.op for o in ops])
 
         if base.val is not None and any(o.op == "filter" for o in ops):
             # categorical comparisons keep eager (string dictionary)
@@ -487,7 +479,7 @@ class _Executor:
         return Assoc._from_parts(base.row[rmask], base.col[cmask], None, out)
 
     # -- matmul with optional device lowering ------------------------------
-    def _exec_matmul(self, node: LazyAssoc) -> Assoc:
+    def _exec_matmul(self, node: LazyAssoc, sp) -> Assoc:
         # Fused chain lowering: a left-spine matmul chain ending in a
         # vector (A @ B @ x) runs as successive device spmvs with the
         # intermediate vector staying on device — no host round-trips
@@ -505,13 +497,16 @@ class _Executor:
             mats = [self.run(f) for f in factors]
             out = _device_matmul_chain(mats)
             if out is not None:
+                sp.tag(route="chain")
                 return out
         a = self.run(node.children[0])
         b = self.run(node.children[1])
-        inner = np.intersect1d(a.col, b.row)
-        asm = a._onto(a.row, inner)
-        bsm = b._onto(inner, b.col)
+        with _span("planner.exec.align"):
+            inner = np.intersect1d(a.col, b.row)
+            asm = a._onto(a.row, inner)
+            bsm = b._onto(inner, b.col)
         vector_out = b.col.shape[0] == 1 and asm.nnz >= DEVICE_NNZ_THRESHOLD
+        sp.tag(route="spmv" if vector_out else "host")
         if vector_out:
             y = _device_spmv(asm, np.asarray(bsm.todense()).ravel())
             sm = S.scipy_from_triples(
@@ -522,11 +517,13 @@ class _Executor:
         return Assoc._from_parts(a.row, b.col, None, asm @ bsm)._compact()
 
     # -- sum with device lowering ------------------------------------------
-    def _exec_sum(self, node: LazyAssoc) -> Assoc:
+    def _exec_sum(self, node: LazyAssoc, sp) -> Assoc:
         a = self.run(node.children[0])
         axis = node.args["axis"]
         if a.nnz < DEVICE_NNZ_THRESHOLD or a.nnz == 0:
+            sp.tag(route="host")
             return a.sum(axis)
+        sp.tag(route="device")
         coo = a.device_coo()
         if axis in (1, 2):
             v = S.row_degree(coo, weighted=True).cpu().numpy().astype(
@@ -620,13 +617,14 @@ def _device_matmul_chain(mats) -> Optional[Assoc]:
     y = S.to_device(np.asarray(vec._numeric_sm().todense()).ravel(),
                     torch.float32)
     for F in reversed(factors):
-        inner = np.intersect1d(F.col, y_keys)
-        if inner.size == 0:
+        with _span("planner.exec.align"):
+            inner = np.intersect1d(F.col, y_keys)
+            fsm = F._onto(F.row, inner) if inner.size else None
+        if fsm is None:
             y_keys = F.row
             y = torch.zeros(F.row.shape[0], dtype=torch.float32,
                             device=y.device)
             continue
-        fsm = F._onto(F.row, inner)
         idx = np.searchsorted(y_keys, inner)    # inner ⊆ y_keys, sorted
         y = _device_spmv_dev(
             fsm, y.index_select(0, torch.from_numpy(idx).to(y.device)))
@@ -794,13 +792,14 @@ def _device_matmul_chain_multi(factors, vecs) -> Optional[list]:
         X[idx, j] = np.asarray(v._numeric_sm().todense()).ravel()
     Y = S.to_device(X, torch.float32)
     for F in reversed(factors):
-        inner = np.intersect1d(F.col, y_keys)
-        if inner.size == 0:
+        with _span("planner.exec.align"):
+            inner = np.intersect1d(F.col, y_keys)
+            fsm = F._onto(F.row, inner) if inner.size else None
+        if fsm is None:
             y_keys = F.row
             Y = torch.zeros((F.row.shape[0], b), dtype=torch.float32,
                             device=Y.device)
             continue
-        fsm = F._onto(F.row, inner)
         idx = np.searchsorted(y_keys, inner)
         Y = _device_spmm_dev(
             fsm, Y.index_select(0, torch.from_numpy(idx).to(Y.device)))

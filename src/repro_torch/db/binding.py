@@ -698,13 +698,14 @@ class DBTable:
         caused it.
         """
         with _span("db.scan_batch", table="+".join(self.tables),
-                   n=len(sels)):
-            return self._scan_batch_impl(sels)
+                   n=len(sels)) as sp:
+            return self._scan_batch_impl(sels, sp)
 
-    def _scan_batch_impl(self, sels) -> list:
+    def _scan_batch_impl(self, sels, sp) -> list:
         self._read_barrier()        # one visibility barrier for the batch
         out: list = [None] * len(sels)
         cache = self._cache
+        n_hits = n_misses = 0       # the span's tags
         groups: dict = {"row": [], "col": [], "deg": []}
         for i, (rsel, csel) in enumerate(sels):
             try:
@@ -736,9 +737,11 @@ class DBTable:
                     if hit is not None:
                         self.stats["cache_hit"] += 1
                         cache._m_batch_hits.inc()
+                        n_hits += 1
                         out[i] = hit
                         continue
                     cache._m_batch_misses.inc()
+                    n_misses += 1
                 misses.append(m)
             if not misses:
                 continue
@@ -759,6 +762,8 @@ class DBTable:
                         (self.tables, _sel_key(rsel), _sel_key(csel)),
                         A, "col" if axis == "deg" else axis, atoms,
                         ttl=self.cache_ttl, if_version=v0)
+        if cache is not None:
+            sp.tag(hits=n_hits, misses=n_misses)
         return out
 
     def _scan_union(self, axis: str, uatoms: _Atoms) -> Assoc:

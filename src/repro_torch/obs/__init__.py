@@ -8,7 +8,8 @@ Two stdlib-only modules with no package-internal imports, so every layer
   rendered by the gateway's ``GET /metrics`` (Prometheus text format).
 * :mod:`repro_torch.obs.trace` — contextvar-propagated request :func:`span`\\ s
   collected by a bounded :class:`Tracer` ring per gateway, with a
-  slow-query log; O(ns) no-ops when no trace is active.
+  slow-query log; O(ns) no-ops when no trace is active, and mirrored
+  into a running ``torch.profiler`` (the module's span catalog).
 
 See docs/api.md "Observability" for the metric catalog and tracing
 semantics.

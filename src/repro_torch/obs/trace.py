@@ -32,12 +32,59 @@ slowest root spans over ``slow_threshold_s`` keep their full span tree
 (``/v1/debug/slow``); untraced requests that cross the threshold are
 noted tree-less by the gateway (:meth:`Tracer.note_slow`) so a slow
 query never hides just because it wasn't sampled.
+
+**One clock with the device trace.**  While a ``torch.profiler`` is
+recording (``torch.autograd.profiler._is_profiler_enabled``, read
+through ``sys.modules`` so this module imports no torch), a live span
+also enters ``torch.profiler.record_function(name)`` for its extent.
+Any profiler trace (``export_chrome_trace``, ``key_averages``) then
+holds the program's spans on its own clock, each kernel under the span
+that enqueued it; the copies on the card's timeline arrive flagged
+``is_user_annotation``.  The no-op path, :func:`record` and
+:func:`traced_iter` are not mirrored.
+
+Span catalog (name: layer; tags; who reads it — the benchmark's
+per-layer metrics live in ``bench/metrics/``):
+
+* ``<METHOD> <path>``: gateway root (``serve.app``); ``method``,
+  ``path``; ``/v1/trace``, the slow log.  The benchmark's loops open
+  one root a call instead, named after the call.
+* ``planner.eval`` (``op``), ``planner.eval_batch`` (``n``): the
+  planner's entry points (``core.expr``); their self time is planning
+  and, in a batch, the fused chains' multi-vector assembly.
+* ``planner.exec.<op>`` for ``scan``, ``select``, ``transpose``,
+  ``add``, ``sub``, ``emul``, ``matmul``, ``sum`` and ``fused`` (one
+  per node the executor runs; leaves, memo hits and nodes evaluated
+  before record nothing): the executor's host work; ``nnz``, ``shape``
+  of the output, ``route`` (``chain``/``spmv``/``host``) on ``matmul``
+  and (``device``/``host``) on ``sum``, ``ops`` on ``fused``;
+  ``planner.exec_ms``.
+* ``planner.exec.align``: ``np.intersect1d`` and ``Assoc._onto``
+  before a product, on every route; ``planner.exec_ms``.
+* ``kernel.spmv`` (``nnz``), ``kernel.spmm`` (``nnz``, ``b``): the
+  device lowering's ELL pack, copy to the card and enqueue;
+  ``planner.lowering_ms``.
+* ``db.scan`` (``table``, ``cache`` = ``hit``/``miss``),
+  ``db.scan_batch`` (``table``, ``n``, ``hits``, ``misses``): the
+  binding and its ScanCache; ``db.scan_ms``, ``db.scan_cache_hit_pct``.
+* ``writer.drain``, ``backend.sync``: the write path's barriers;
+  ``/v1/trace``.
+* ``rpc.<op>`` (``shard``): the net store's client; ``db.rpc_ms``.
+* ``lsm.spill``, ``lsm.compact``, ``lsm.scan_*``, ``lsm.degree_items``:
+  the LSM store; ``/v1/trace``.
+* ``analytics.fit_degree_table``, ``analytics.c2_scores`` with
+  ``analytics.c2.{fanin,uniform,beacon,ports,fuse}``, and
+  ``analytics.pagerank_table`` with
+  ``analytics.pagerank.{adjacency,square,upload,iterate}``: the
+  analytics' host work outside the planner (key strips, ``Assoc``
+  builds, statistics, uploads, enqueues); ``analytics.host_ms``.
 """
 from __future__ import annotations
 
 import contextvars
 import itertools
 import os
+import sys
 import threading
 import time
 from collections import OrderedDict
@@ -72,6 +119,7 @@ class _NoopSpan:
 
     __slots__ = ()
     trace_id = None
+    live = False
 
     def __enter__(self):
         return self
@@ -90,12 +138,15 @@ class _Span:
     """A live span: context manager that re-parents the ContextVar for
     its dynamic extent and records itself on exit."""
 
-    __slots__ = ("_ctx", "name", "tags", "_t0", "_wall0", "_sid", "_token")
+    __slots__ = ("_ctx", "name", "tags", "_t0", "_wall0", "_sid", "_token",
+                 "_rf")
+    live = True
 
     def __init__(self, ctx: _Ctx, name: str, tags: dict):
         self._ctx = ctx
         self.name = name
         self.tags = tags
+        self._rf = None
 
     @property
     def trace_id(self) -> str:
@@ -104,6 +155,11 @@ class _Span:
     def __enter__(self):
         ctx = self._ctx
         self._sid = ctx.tracer._next_span_id()
+        prof = sys.modules.get("torch.autograd.profiler")
+        if prof is not None and prof._is_profiler_enabled:
+            # the same extent on the profiler's clock (module docstring)
+            self._rf = prof.record_function(self.name)
+            self._rf.__enter__()
         self._wall0 = time.time()
         self._t0 = time.perf_counter()
         self._token = _CTX.set(_Ctx(ctx.tracer, ctx.trace_id, self._sid))
@@ -115,6 +171,9 @@ class _Span:
     def __exit__(self, et, ev, tb):
         dur = time.perf_counter() - self._t0
         _CTX.reset(self._token)
+        if self._rf is not None:
+            self._rf.__exit__(et, ev, tb)
+            self._rf = None
         if et is not None:
             self.tags["error"] = f"{et.__name__}: {ev}"
         ctx = self._ctx

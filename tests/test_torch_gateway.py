@@ -245,7 +245,8 @@ class TestObservability:
 
     def test_trace_round_trip(self, served):
         """``?trace=1`` returns an ``X-Trace-Id`` whose span tree the
-        trace route serves; the two packages record the same spans."""
+        trace route serves; the port records the reference's spans, and
+        its own inside the planner's executor and the analytics."""
         names = {}
         for g in ("port", "ref"):
             s, _, hdrs = req(served[g], "GET", "/v1/c2?top_k=3&trace=1")
@@ -265,7 +266,11 @@ class TestObservability:
             assert req(served[g], "GET", "/v1/trace/feedface")[0] == 404
             s, d, _ = req(served[g], "GET", "/v1/debug/slow")
             assert s == 200 and "threshold_s" in d
-        assert names["port"] == names["ref"]
+        own = ("planner.exec.", "analytics.")
+        assert [n for n in names["port"]
+                if not n.startswith(own)] == names["ref"]
+        assert {"planner.exec.align", "analytics.c2_scores",
+                "analytics.c2.fuse"} <= set(names["port"])
 
 
 class TestErrors:
