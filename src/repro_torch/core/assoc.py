@@ -231,39 +231,52 @@ class Assoc:
     # ------------------------------------------------------------------
     # algebra
     # ------------------------------------------------------------------
-    def _union_keys(self, other: "Assoc"):
-        row = np.union1d(self.row, other.row)
-        col = np.union1d(self.col, other.col)
-        return row, col
-
-    def _promote(self, row, col):
-        """Re-index payload onto superset key dictionaries."""
-        return self._onto(row, col, numeric=False)
-
-    def _onto(self, row, col, numeric: bool = True):
-        """Project the payload onto arbitrary key dictionaries: entries
-        whose keys are absent from the targets are dropped; the rest are
-        re-indexed.  This is the correct alignment for key-intersected
-        matmul and key-unioned addition alike."""
+    def _onto(self, rmap, cmap, shape, sm=None):
+        """Project a payload over this array's keys (``sm``, the numeric
+        payload by default) onto aligned key dictionaries of ``shape``
+        through the maps :func:`keys.align` returns: the position there
+        of each of this array's row (column) keys, -1 where absent, or
+        None where the dictionary is this array's own.  Entries on an
+        absent key are dropped, the rest re-indexed; the result is a
+        canonical CSR (sorted indices, no duplicates).  With both maps
+        None it is the payload itself: do not modify it."""
         import scipy.sparse as sp
 
-        def keymap(sub: np.ndarray, target: np.ndarray) -> np.ndarray:
-            if target.shape[0] == 0 or sub.shape[0] == 0:
-                return np.full(sub.shape[0], -1, np.int64)
-            pos = np.searchsorted(target, sub)
-            pos_c = np.clip(pos, 0, target.shape[0] - 1)
-            hit = target[pos_c] == sub
-            return np.where(hit, pos_c, -1).astype(np.int64)
+        if sm is None:
+            sm = self._numeric_sm()
+        if rmap is None and cmap is None:
+            if not sm.has_canonical_format:
+                sm = sm.copy()
+                sm.sum_duplicates()
+            return sm
+        rows = np.repeat(np.arange(sm.shape[0]) if rmap is None else rmap,
+                         np.diff(sm.indptr))
+        cols = sm.indices if cmap is None else cmap[sm.indices]
+        keep = (rows >= 0) & (cols >= 0)
+        rows = rows[keep]
+        indptr = np.zeros(shape[0] + 1, np.int64)
+        np.cumsum(np.bincount(rows, minlength=shape[0]), out=indptr[1:])
+        # the maps are increasing, so entries stay in row-major order
+        out = sp.csr_matrix((sm.data[keep], cols[keep], indptr), shape=shape)
+        out.sum_duplicates()    # a no-op on a canonical input
+        return out
 
-        sm = self._numeric_sm() if numeric else self.sm
-        coo = sm.tocoo()
-        rmap = keymap(self.row, np.asarray(row))
-        cmap = keymap(self.col, np.asarray(col))
-        rr, cc = rmap[coo.row], cmap[coo.col]
-        m = (rr >= 0) & (cc >= 0)
-        return sp.csr_matrix(
-            (coo.data[m], (rr[m], cc[m])),
-            shape=(np.asarray(row).shape[0], np.asarray(col).shape[0]))
+    def _aligned(self, other: "Assoc", how: str):
+        """Row and column keys of both arrays intersected (``"inter"``)
+        or united (``"union"``), and both payloads projected onto them."""
+        r = K.align(self.row, other.row, how)
+        c = K.align(self.col, other.col, how)
+        shape = (r.keys.shape[0], c.keys.shape[0])
+        return (r.keys, c.keys, self._onto(r.ia, c.ia, shape),
+                other._onto(r.ib, c.ib, shape))
+
+    def _inner_aligned(self, other: "Assoc"):
+        """The payloads of ``self @ other`` over the inner dimension D4M
+        uses, ``self.col`` ∩ ``other.row``, and that alignment."""
+        inner = K.align(self.col, other.row, "inter")
+        k = inner.keys.shape[0]
+        return (self._onto(None, inner.ia, (self.row.shape[0], k)),
+                other._onto(inner.ib, None, (k, other.col.shape[0])), inner)
 
     def __add__(self, other) -> "Assoc":
         if isinstance(other, (int, float)):
@@ -271,32 +284,54 @@ class Assoc:
             out.sm.data = out._numeric_sm().data + other
             out.val = None
             return out
+        if self.val is not None and other.val is not None:
+            return self._categorical_add(other)
         if self.val is not None or other.val is not None:
-            # categorical union-add: collide via lexicographic min
+            # categorical union-add: collide via lexicographic min, the
+            # numeric side's values compared as strings
             r1, c1, v1 = self.triples()
             r2, c2, v2 = other.triples()
             return Assoc(np.concatenate([r1, r2]), np.concatenate([c1, c2]),
                          np.concatenate([v1.astype(str), v2.astype(str)]),
                          agg="min")
-        row, col = self._union_keys(other)
-        sm = self._promote(row, col) + other._promote(row, col)
-        return Assoc._from_parts(row, col, None, sm)._compact()
+        row, col, a, b = self._aligned(other, "union")
+        return Assoc._from_parts(row, col, None, a + b)._compact()
+
+    def _categorical_add(self, other: "Assoc") -> "Assoc":
+        """Union-add of two categorical arrays: where both hold an entry
+        the lexicographically smaller string wins, as D4M collides."""
+        r = K.align(self.row, other.row, "union")
+        c = K.align(self.col, other.col, "union")
+        v = K.align(self.val, other.val, "union")
+        shape = (r.keys.shape[0], c.keys.shape[0])
+        top = v.keys.shape[0] + 1
+
+        def ranked(x: "Assoc", vmap):
+            # value k (1-based in v.keys) becomes top - k, so the union's
+            # elementwise maximum keeps the smaller string
+            sm = x.sm.copy()
+            k = sm.data if vmap is None else \
+                vmap[sm.data.astype(np.int64) - 1] + 1.0
+            sm.data = top - k
+            return sm
+
+        sm = self._onto(r.ia, c.ia, shape, ranked(self, v.ia)).maximum(
+            other._onto(r.ib, c.ib, shape, ranked(other, v.ib)))
+        won = (top - sm.data).astype(np.int64)
+        used = np.zeros(top, bool)
+        used[won] = True
+        # renumber over the values that won, as the triple build does
+        sm.data = np.cumsum(used)[won].astype(np.float64)
+        val = v.keys[used[1:]] if sm.nnz else None
+        return Assoc._from_parts(r.keys, c.keys, val, sm)._compact()
 
     def __sub__(self, other) -> "Assoc":
-        row, col = self._union_keys(other)
-        sm = self._numeric_sm_promoted(row, col) - \
-            other._numeric_sm_promoted(row, col)
-        return Assoc._from_parts(row, col, None, sm)._compact()
-
-    def _numeric_sm_promoted(self, row, col):
-        return self._onto(row, col, numeric=True)
+        row, col, a, b = self._aligned(other, "union")
+        return Assoc._from_parts(row, col, None, a - b)._compact()
 
     def multiply(self, other: "Assoc") -> "Assoc":
         """Element-wise (Hadamard) product on intersected keys."""
-        row = np.intersect1d(self.row, other.row)
-        col = np.intersect1d(self.col, other.col)
-        a = self._onto(row, col)
-        b = other._onto(row, col)
+        row, col, a, b = self._aligned(other, "inter")
         return Assoc._from_parts(row, col, None, a.multiply(b))._compact()
 
     def __and__(self, other) -> "Assoc":
@@ -316,11 +351,8 @@ class Assoc:
             out.sm = out._numeric_sm() * other
             out.val = None
             return out
-        inner = np.intersect1d(self.col, other.row)
-        a = self._onto(self.row, inner)
-        b = other._onto(inner, other.col)
-        sm = a @ b
-        return Assoc._from_parts(self.row, other.col, None, sm)._compact()
+        a, b, _ = self._inner_aligned(other)
+        return Assoc._from_parts(self.row, other.col, None, a @ b)._compact()
 
     __rmul__ = __mul__
 

@@ -501,10 +501,9 @@ class _Executor:
                 return out
         a = self.run(node.children[0])
         b = self.run(node.children[1])
-        with _span("planner.exec.align"):
-            inner = np.intersect1d(a.col, b.row)
-            asm = a._onto(a.row, inner)
-            bsm = b._onto(inner, b.col)
+        with _span("planner.exec.align") as al:
+            asm, bsm, inner = a._inner_aligned(b)
+            al.tag(path=inner.path)
         vector_out = b.col.shape[0] == 1 and asm.nnz >= DEVICE_NNZ_THRESHOLD
         sp.tag(route="spmv" if vector_out else "host")
         if vector_out:
@@ -600,6 +599,24 @@ def _device_spmv(asm, x: np.ndarray) -> np.ndarray:
     return y.cpu().numpy().astype(np.float64)
 
 
+def _align_factor(F: Assoc, y_keys: np.ndarray):
+    """A chain factor's payload over ``F.col`` ∩ ``y_keys`` (None when
+    they share no key), and that alignment."""
+    inner = K.align(F.col, y_keys, "inter")
+    k = inner.keys.shape[0]
+    fsm = F._onto(None, inner.ia, (F.row.shape[0], k)) if k else None
+    return fsm, inner
+
+
+def _take_rows(y: torch.Tensor, ix) -> torch.Tensor:
+    """The rows of ``y`` (indexed by a dictionary) at the keys an
+    intersection map ``ix`` keeps; ``y`` itself for the identity."""
+    if ix is None:
+        return y
+    keep = torch.from_numpy(np.flatnonzero(ix >= 0))
+    return y.index_select(0, keep.to(y.device))
+
+
 def _device_matmul_chain(mats) -> Optional[Assoc]:
     """Lower A @ B @ ... @ x to successive device spmvs, keeping the
     intermediate vector on device between factors.  Returns None when
@@ -617,17 +634,15 @@ def _device_matmul_chain(mats) -> Optional[Assoc]:
     y = S.to_device(np.asarray(vec._numeric_sm().todense()).ravel(),
                     torch.float32)
     for F in reversed(factors):
-        with _span("planner.exec.align"):
-            inner = np.intersect1d(F.col, y_keys)
-            fsm = F._onto(F.row, inner) if inner.size else None
+        with _span("planner.exec.align") as al:
+            fsm, inner = _align_factor(F, y_keys)
+            al.tag(path=inner.path)
         if fsm is None:
             y_keys = F.row
             y = torch.zeros(F.row.shape[0], dtype=torch.float32,
                             device=y.device)
             continue
-        idx = np.searchsorted(y_keys, inner)    # inner ⊆ y_keys, sorted
-        y = _device_spmv_dev(
-            fsm, y.index_select(0, torch.from_numpy(idx).to(y.device)))
+        y = _device_spmv_dev(fsm, _take_rows(y, inner.ib))
         y_keys = F.row
     yv = y.cpu().numpy().astype(np.float64)     # single host transfer
     sm = S.scipy_from_triples(
@@ -784,7 +799,7 @@ def _device_matmul_chain_multi(factors, vecs) -> Optional[list]:
         return None
     y_keys = vecs[0].row
     for v in vecs[1:]:
-        y_keys = np.union1d(y_keys, v.row)
+        y_keys = K.align(y_keys, v.row, "union").keys
     b = len(vecs)
     X = np.zeros((y_keys.shape[0], b), np.float32)
     for j, v in enumerate(vecs):
@@ -792,17 +807,15 @@ def _device_matmul_chain_multi(factors, vecs) -> Optional[list]:
         X[idx, j] = np.asarray(v._numeric_sm().todense()).ravel()
     Y = S.to_device(X, torch.float32)
     for F in reversed(factors):
-        with _span("planner.exec.align"):
-            inner = np.intersect1d(F.col, y_keys)
-            fsm = F._onto(F.row, inner) if inner.size else None
+        with _span("planner.exec.align") as al:
+            fsm, inner = _align_factor(F, y_keys)
+            al.tag(path=inner.path)
         if fsm is None:
             y_keys = F.row
             Y = torch.zeros((F.row.shape[0], b), dtype=torch.float32,
                             device=Y.device)
             continue
-        idx = np.searchsorted(y_keys, inner)
-        Y = _device_spmm_dev(
-            fsm, Y.index_select(0, torch.from_numpy(idx).to(Y.device)))
+        Y = _device_spmm_dev(fsm, _take_rows(Y, inner.ib))
         y_keys = F.row
     Yh = Y.cpu().numpy().astype(np.float64)     # single host transfer
     outs = []

@@ -16,8 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .assoc import Assoc, StartsWith
+from . import keys as K
 from . import sparse as S
+from .assoc import Assoc, StartsWith
 
 
 # ---------------------------------------------------------------------------
@@ -42,9 +43,10 @@ def adjacency(E: Assoc, src_field: str = "ip.src", dst_field: str = "ip.dst",
 def square(A: Assoc) -> Assoc:
     """Promote to a square array over the union of row/col keys (needed
     before spectral/PageRank work on a directed adjacency)."""
-    nodes = np.union1d(A.row, A.col)
-    sm = A._numeric_sm_promoted(nodes, nodes)
-    return Assoc._from_parts(nodes, nodes, None, sm)
+    nodes = K.align(A.row, A.col, "union")
+    n = nodes.keys.shape[0]
+    sm = A._onto(nodes.ia, nodes.ib, (n, n))
+    return Assoc._from_parts(nodes.keys, nodes.keys, None, sm)
 
 
 def connections(E: Assoc, ip: str, src_field: str = "ip.src",

@@ -4,14 +4,17 @@ D4M indexes arrays by arbitrary totally-ordered key sets — almost always
 strings ("1.1.1.1", "ip.src|63.237.205.194", packet IDs).  This module
 holds the host-side (numpy) machinery: parsing D4M's delimiter-terminated
 key strings, canonical sorted-unique dictionaries, and the selector
-objects used in subscripting (ranges, prefixes).
+objects used in subscripting (ranges, prefixes), and :func:`align`,
+which lines two dictionaries up by integer index maps.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Sequence, Union
+from typing import Iterable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
+
+from ..obs.metrics import REGISTRY as _REGISTRY
 
 # D4M convention: a single string whose *last* character is the delimiter
 # encodes a key list, e.g. 'a,b,c,' or 'ip.src|1.2.3.4|'.
@@ -46,6 +49,121 @@ def unique_keys(keys: KeysLike) -> tuple[np.ndarray, np.ndarray]:
     arr = parse_keys(keys)
     uniq, inv = np.unique(arr, return_inverse=True)
     return uniq, inv.astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# Alignment of two sorted-unique dictionaries by integer index maps.
+# ---------------------------------------------------------------------------
+
+# Every alignment counts the path it took; /metrics shows the counts as
+# repro_key_align_total{path=...}.
+ALIGN_PATHS = ("same", "empty", "search", "merge")
+_ALIGN_FAMILY = _REGISTRY.counter(
+    "repro_key_align_total", "Key-dictionary alignments by path",
+    labels=("path",))
+_ALIGN_COUNTERS = {p: _ALIGN_FAMILY.labels(path=p) for p in ALIGN_PATHS}
+
+
+def align_counts() -> dict:
+    """Snapshot of the alignment counters by path (a copy, safe to diff)."""
+    return {p: c.value for p, c in _ALIGN_COUNTERS.items()}
+
+
+class Alignment(NamedTuple):
+    """The aligned dictionary and, for each side, the position in it of
+    every key of that side (-1 where it has no such key), or None where
+    the side's keys are the aligned dictionary itself."""
+    keys: np.ndarray
+    ia: Optional[np.ndarray]
+    ib: Optional[np.ndarray]
+    path: str
+
+
+def align(a: np.ndarray, b: np.ndarray, how: str) -> Alignment:
+    """Intersect (``how="inter"``) or unite (``how="union"``) two sorted,
+    unique key dictionaries without sorting their strings again.
+
+    ``keys`` equals ``np.intersect1d(a, b)`` / ``np.union1d(a, b)`` in
+    order and dtype.  The path follows from the inputs: ``same`` (``a is
+    b`` or equal arrays: both maps the identity), ``empty`` (a side has
+    no keys), ``search`` (the smaller side binary-searched into the
+    larger, when its m·log2(n) comparisons cost less than a merge), else
+    ``merge`` (a stable sort of the concatenation, which finds the two
+    sorted runs and merges them in one pass).
+    """
+    if how not in ("inter", "union"):
+        raise ValueError(f"how must be 'inter' or 'union', not {how!r}")
+    dtype = np.promote_types(a.dtype, b.dtype)
+    m, n = a.shape[0], b.shape[0]
+    if a is b or (m == n and np.array_equal(a, b)):
+        path, keys, ia, ib = "same", a, None, None
+    elif m == 0 or n == 0:
+        path = "empty"
+        if how == "inter":
+            keys = a[:0]
+            ia, ib = np.full(m, -1, np.int64), np.full(n, -1, np.int64)
+        else:
+            keys = b if m == 0 else a   # its map becomes None below
+            ia, ib = np.empty(m, np.int64), np.empty(n, np.int64)
+    elif min(m, n) * max(m, n).bit_length() < m + n:
+        path = "search"
+        if m <= n:
+            keys, ia, ib = _search(a, b, how, dtype)
+        else:
+            keys, ib, ia = _search(b, a, how, dtype)
+    else:
+        path = "merge"
+        keys, ia, ib = _merge(a, b, how)
+    _ALIGN_COUNTERS[path].inc()
+    k = keys.shape[0]
+    return Alignment(keys.astype(dtype, copy=False),
+                     None if m == k else ia, None if n == k else ib, path)
+
+
+def _search(s: np.ndarray, big: np.ndarray, how: str, dtype):
+    """:func:`align` with the small side ``s`` searched into ``big``."""
+    m, n = s.shape[0], big.shape[0]
+    lo = np.searchsorted(big, s)
+    hit = big[np.minimum(lo, n - 1)] == s
+    k = int(np.count_nonzero(hit))
+    if how == "inter":
+        ms = np.where(hit, np.cumsum(hit) - 1, -1)
+        mb = np.full(n, -1, np.int64)
+        mb[lo[hit]] = np.arange(k)
+        return s[hit], ms, mb
+    # keys of big below s[i], less those s[:i] shares with big
+    ms = np.arange(m) + lo - (np.cumsum(hit) - hit)
+    free = np.ones(m + n - k, bool)
+    free[ms] = False
+    shared = np.zeros(n, bool)
+    shared[lo[hit]] = True
+    mb = np.empty(n, np.int64)
+    mb[shared] = ms[hit]
+    mb[~shared] = np.flatnonzero(free)  # big's own keys fill the gaps
+    keys = np.empty(m + n - k, dtype)
+    keys[ms] = s
+    keys[mb] = big
+    return keys, ms, mb
+
+
+def _merge(a: np.ndarray, b: np.ndarray, how: str):
+    """:func:`align` by one stable merge of the two sorted runs."""
+    m = a.shape[0]
+    cat = np.concatenate([a, b])
+    order = np.argsort(cat, kind="stable")
+    srt = cat[order]
+    dup = srt[1:] == srt[:-1]       # (a's key, b's equal key), in order
+    if how == "inter":
+        pa, pb = order[:-1][dup], order[1:][dup] - m
+        ia = np.full(m, -1, np.int64)
+        ib = np.full(b.shape[0], -1, np.int64)
+        ia[pa] = ib[pb] = np.arange(pa.shape[0])
+        return srt[1:][dup], ia, ib
+    first = np.ones(cat.shape[0], bool)
+    first[1:] = ~dup
+    pos = np.empty(cat.shape[0], np.int64)
+    pos[order] = np.cumsum(first) - 1
+    return srt[first], pos[:m], pos[m:]
 
 
 # ---------------------------------------------------------------------------
@@ -134,5 +252,5 @@ def resolve_selector(sel, dictionary: np.ndarray) -> np.ndarray:
     idx = np.clip(idx, 0, max(dictionary.shape[0] - 1, 0))
     hit = dictionary[idx] == wanted
     # sorted-unique: result arrays must keep the sorted-dictionary
-    # invariant every other Assoc path (and _onto alignment) relies on
+    # invariant every other Assoc path (and keys.align) relies on
     return np.unique(idx[hit]).astype(np.int64)

@@ -59,8 +59,10 @@ per-layer metrics live in ``bench/metrics/``):
   of the output, ``route`` (``chain``/``spmv``/``host``) on ``matmul``
   and (``device``/``host``) on ``sum``, ``ops`` on ``fused``;
   ``planner.exec_ms``.
-* ``planner.exec.align``: ``np.intersect1d`` and ``Assoc._onto``
-  before a product, on every route; ``planner.exec_ms``.
+* ``planner.exec.align``: ``keys.align`` and ``Assoc._onto`` before a
+  product, on every route; ``path`` (``same``/``empty``/``search``/
+  ``merge``, the aligner's path, also counted in
+  ``repro_key_align_total``); ``planner.exec_ms``.
 * ``kernel.spmv`` (``nnz``), ``kernel.spmm`` (``nnz``, ``b``): the
   device lowering's ELL pack, copy to the card and enqueue;
   ``planner.lowering_ms``.

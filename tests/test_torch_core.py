@@ -236,3 +236,121 @@ class TestHostAlgebra:
 
     def test_cross_package_types_stay_apart(self):
         assert not isinstance(JAssoc(), Assoc)
+
+
+# -- key alignment by index maps ----------------------------------------------
+
+def _dictionary(rng, n, width, prefix="k"):
+    """``n`` sorted unique keys of ``width`` digits (fewer on a collision)."""
+    return np.unique(np.asarray(
+        [f"{prefix}{v:0{width}d}" for v in rng.integers(0, 10 ** width, n)]))
+
+
+def _align_case(name, rng):
+    """(a, b, path taken for "inter", path taken for "union")."""
+    a = _dictionary(rng, 3000, 6)
+    if name == "equal":
+        return a, a.copy(), "same", "same"
+    if name == "one_empty":
+        return a, a[:0], "empty", "empty"
+    if name == "both_empty":
+        return a[:0], np.empty(0, "U5"), "same", "same"
+    if name == "disjoint":
+        return a, _dictionary(rng, 2500, 6, prefix="z"), "merge", "merge"
+    if name == "nested":
+        return a[rng.random(a.shape[0]) < 0.6], a, "merge", "merge"
+    if name == "16_in_10k":
+        big = _dictionary(rng, 10000, 7)
+        small = np.unique(np.concatenate(
+            [rng.choice(big, 12, replace=False), _dictionary(rng, 4, 7, "j")]))
+        return big, small, "search", "search"
+    assert name == "widths"    # a <U7 dictionary against a <U31 one
+    wide = np.asarray([k + "|" + "x" * 24 for k in a[::3]])
+    return a, np.unique(np.concatenate([wide, a[1::2]])), "merge", "merge"
+
+
+def _searched_map(own, target):
+    """The projection as it was made before the aligner: each own key
+    binary-searched in the target, -1 where absent."""
+    if target.shape[0] == 0 or own.shape[0] == 0:
+        return np.full(own.shape[0], -1, np.int64)
+    pos = np.clip(np.searchsorted(target, own), 0, target.shape[0] - 1)
+    return np.where(target[pos] == own, pos, -1).astype(np.int64)
+
+
+def _searched_onto(A, row, col):
+    """``Assoc._onto`` as it was: searched maps, then COO → CSR."""
+    import scipy.sparse as sp
+    coo = A._numeric_sm().tocoo()
+    rr = _searched_map(A.row, row)[coo.row]
+    cc = _searched_map(A.col, col)[coo.col]
+    m = (rr >= 0) & (cc >= 0)
+    return sp.csr_matrix((coo.data[m], (rr[m], cc[m])),
+                         shape=(row.shape[0], col.shape[0]))
+
+
+@pytest.mark.parametrize("case", ["equal", "one_empty", "both_empty",
+                                  "disjoint", "nested", "16_in_10k",
+                                  "widths"])
+def test_align_matches_set_ops_and_searched_projection(case):
+    rng = np.random.default_rng(sum(case.encode()))
+    a, b, p_inter, p_union = _align_case(case, rng)
+    for x, y in ((a, b), (b, a)):
+        for how, ref, path in (("inter", np.intersect1d, p_inter),
+                               ("union", np.union1d, p_union)):
+            before = keys.align_counts()
+            al = keys.align(x, y, how)
+            want = ref(x, y)
+            assert al.path == path
+            assert keys.align_counts()[path] == before[path] + 1
+            np.testing.assert_array_equal(al.keys, want)
+            assert al.keys.dtype == want.dtype
+            for own, ix in ((x, al.ia), (y, al.ib)):
+                got = np.arange(own.shape[0]) if ix is None else ix
+                np.testing.assert_array_equal(got, _searched_map(own, want))
+                assert ix is not None or own.shape[0] == want.shape[0]
+            # a payload over x's rows and y's columns, onto the alignment
+            # of its rows with y and of its columns with x
+            if x.shape[0] and y.shape[0]:
+                n = 4 * (x.shape[0] + y.shape[0])
+                A = Assoc(rng.choice(x, n), rng.choice(y, n),
+                          rng.normal(size=n))
+            else:
+                A = Assoc()
+            r, c = keys.align(A.row, y, how), keys.align(A.col, x, how)
+            got = A._onto(r.ia, c.ia, (r.keys.shape[0], c.keys.shape[0]))
+            want_sm = _searched_onto(A, r.keys, c.keys)
+            assert got.shape == want_sm.shape and got.has_canonical_format
+            for f in ("indptr", "indices", "data"):
+                np.testing.assert_array_equal(getattr(got, f),
+                                              getattr(want_sm, f))
+                assert getattr(got, f).dtype == getattr(want_sm, f).dtype
+
+
+def _categorical(rng, n, n_rows, n_cols, vals):
+    rows = np.asarray([f"p{i:04d}" for i in rng.integers(0, n_rows, n)])
+    cols = np.asarray([f"f|{i}" for i in rng.integers(0, n_cols, n)])
+    return rows, cols, np.asarray(rng.choice(vals, n))
+
+
+@pytest.mark.parametrize("case", ["band_plus_empty", "overlap",
+                                  "other_values", "both_empty"])
+def test_categorical_add_matches_reference(case):
+    """Union-add of two categorical arrays (the smaller string wins on a
+    shared entry) against the JAX package's triple rebuild."""
+    rng = np.random.default_rng(len(case))
+    x = _categorical(rng, 400, 120, 30, ["1", "2", "b"])
+    y = {"band_plus_empty": x, "both_empty": x,
+         "overlap": _categorical(rng, 300, 150, 40, ["1", "0", "bb"]),
+         "other_values": _categorical(rng, 200, 80, 20, ["zz", "a"])}[case]
+    A, B, JA, JB = Assoc(*x), Assoc(*y), JAssoc(*x), JAssoc(*y)
+    if case in ("band_plus_empty", "both_empty"):
+        B, JB = B[:, "g|*,"], JB[:, "g|*,"]     # no such column: empty
+    if case == "both_empty":
+        A, JA = A[:, "g|*,"], JA[:, "g|*,"]
+    for got, want in ((A + B, JA + JB), (B + A, JB + JA)):
+        assert_assoc_equal(got, want)
+        assert (got.val is None) == (want.val is None)
+        if got.val is not None:
+            np.testing.assert_array_equal(got.val, want.val)
+        np.testing.assert_array_equal(got.sm.toarray(), want.sm.toarray())

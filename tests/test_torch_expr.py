@@ -149,3 +149,67 @@ def test_planner_pushdown_and_cse_match():
     assert a == b
     assert_assoc_close(a, ja)
     assert T.stats["col"] - cols0 == JT.stats["col"] - jcols0 == 1
+
+
+def packet_tables(n=300, hosts=10, seed=4):
+    """Both packages' stores over one categorical incidence array in the
+    pipeline's layout (a packet a row, ``field|value`` columns holding
+    the string "1")."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for i in range(n):
+        fields = (f"ip.src|10.0.0.{rng.integers(hosts)}",
+                  f"ip.dst|10.0.1.{rng.integers(hosts)}",
+                  f"frame.time|{i // 30:04d}")
+        rows.extend([f"pkt{i:05d}"] * len(fields))
+        cols.extend(fields)
+    args = (np.asarray(rows), np.asarray(cols), "1,")
+    T, JT = DB("Tedge", "TedgeT"), JDB("Tedge", "TedgeT")
+    put(T, Assoc(*args))
+    jput(JT, JAssoc(*args))
+    return T, JT
+
+
+@pytest.mark.parametrize("shape,path,counts", [
+    ("c2_product", "same", {"same": 1}),
+    ("one_host_chain", "search", {"search": 1}),
+    ("band_plus_empty", None, {"empty": 2, "same": 1}),
+])
+def test_alignment_paths_counted_and_tagged(shape, path, counts):
+    """The analyst's three alignment shapes take the aligner's paths,
+    count them in ``repro_key_align_total`` and tag the product's
+    ``planner.exec.align`` span; answers equal the JAX package's."""
+    from repro_torch.core import keys
+    from repro_torch.core.keys import StartsWith
+    from repro.core.keys import StartsWith as JStartsWith
+    from repro_torch.obs import Tracer
+
+    T, JT = packet_tables()
+    h = "10.0.1.3"
+    build = {
+        "c2_product": lambda t, sw, lz, A: (t[:, sw("ip.src|")].T
+                                            * t[:, sw("ip.dst|")]),
+        "one_host_chain": lambda t, sw, lz, A: t.lazy() * lz(A(
+            np.asarray([f"ip.dst|{h}", f"ip.src|{h}"]), np.asarray([h, h]),
+            np.ones(2))),
+        # pagerank's adjacency: the select pushed through the add
+        # leaves the src band plus an empty select of the dst band
+        "band_plus_empty": lambda t, sw, lz, A: (
+            t[:, sw("ip.src|")] + t[:, sw("ip.dst|")])[:, sw("ip.src|")],
+    }[shape]
+    expr = build(T, StartsWith, lazy, Assoc)
+    want = build(JT, JStartsWith, jlazy, JAssoc).eval()
+    tr = Tracer(max_spans=4096)
+    root = tr.start("q")
+    before = keys.align_counts()
+    with root:
+        got = expr.eval()
+    after = keys.align_counts()
+    assert {p: after[p] - before[p] for p in after
+            if after[p] != before[p]} == counts
+    tags = [s["tags"].get("path") for s in tr.spans(root.trace_id)
+            if s["name"] == "planner.exec.align"]
+    assert tags == ([] if path is None else [path])
+    assert_assoc_close(got, want)
+    if shape == "band_plus_empty":
+        np.testing.assert_array_equal(got.val, want.val)
