@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -24,22 +25,41 @@ from ..configs import get_config, smoke_config
 from ..data import tokenizer as T
 from ..device import get_device
 from ..models import decode_step, init_params, prefill
+from ..obs import span
 
 
-def generate(cfg, params, prompts: list[str], max_new: int = 32,
-             s_max: int = 256, temperature: float = 0.0, seed: int = 0):
-    """Batched greedy/temperature sampling on the parameters' device;
-    prompts are left-padded with token 0 to the longest.  Decode
-    positions continue after the prompt and, for vision configs, after
-    the image prefix."""
+class Generated(NamedTuple):
+    """What :func:`generate` hands back with ``details=True``."""
+    tokens: torch.Tensor        # (B, max_new) int64 new token ids, host
+    logits: list                # max_new + 1 float32 (B, V): the prompt's
+                                # last position, then each decode step's
+
+
+def generate(cfg, params, prompts, max_new: int = 32,
+             s_max: int = 256, temperature: float = 0.0, seed: int = 0,
+             details: bool = False):
+    """Batched greedy/temperature sampling on the parameters' device.
+
+    ``prompts`` are strings, left-padded with token 0 to the longest, or
+    a (B, S) tensor of token ids.  Decode positions continue after the
+    prompt and, for vision configs, after the image prefix.  Returns the
+    decoded strings (string prompts) or the (B, max_new) new ids (id
+    prompts); with ``details`` a :class:`Generated`.  Spans
+    ``model.prefill`` (``batch``, ``tokens``) and ``model.decode_step``
+    (``batch``) each end once the step's tokens are on the host."""
     dev = params["embed"].device
-    toks = [np.minimum(T.encode(p), cfg.vocab - 1) for p in prompts]
-    max_len = max(t.shape[0] for t in toks)
-    batch = np.full((len(toks), max_len), 0, np.int32)
-    for i, t in enumerate(toks):
-        batch[i, -t.shape[0]:] = t      # left-pad
-    n, D = len(toks), cfg.d_model
-    pb = {"tokens": torch.from_numpy(batch).to(dev)}
+    if isinstance(prompts, torch.Tensor):
+        batch = prompts.to(device=dev, dtype=torch.int32)
+    else:
+        toks = [np.minimum(T.encode(p), cfg.vocab - 1) for p in prompts]
+        host = np.full((len(toks), max(t.shape[0] for t in toks)), 0,
+                       np.int32)
+        for i, t in enumerate(toks):
+            host[i, -t.shape[0]:] = t       # left-pad
+        batch = torch.from_numpy(host).to(dev)
+    n, max_len = batch.shape
+    D = cfg.d_model
+    pb = {"tokens": batch}
     if cfg.frontend == "vision":
         pb["img_embeds"] = torch.zeros((n, cfg.n_img_tokens, D),
                                        dtype=torch.float32, device=dev)
@@ -48,27 +68,41 @@ def generate(cfg, params, prompts: list[str], max_new: int = 32,
         pb["frames"] = torch.zeros((n, cfg.encoder_seq, D),
                                    dtype=torch.float32, device=dev)
         enc_zeros = torch.zeros_like(pb["frames"])
-    logits, caches = prefill(params, pb, cfg, s_max=s_max)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    out_tokens = [[] for _ in prompts]
-    pos = max_len + (cfg.n_img_tokens if cfg.frontend == "vision" else 0)
-    for _ in range(max_new):
+
+    def pick(logits):
         last = logits[:, -1]
         if temperature > 0:
             probs = torch.softmax(last / temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
         else:
             nxt = torch.argmax(last, dim=-1)
-        for i, t in enumerate(nxt.tolist()):
-            out_tokens[i].append(t)
+        return last, nxt, nxt.tolist()
+
+    with span("model.prefill", batch=n, tokens=n * max_len):
+        logits, caches = prefill(params, pb, cfg, s_max=s_max)
+        last, nxt, host_ids = pick(logits)
+    seen, out_tokens = [last], []
+    pos = max_len + (cfg.n_img_tokens if cfg.frontend == "vision" else 0)
+    for _ in range(max_new):
+        out_tokens.append(host_ids)
         db = {"tokens": nxt[:, None].to(torch.int32),
-              "positions": torch.full((len(prompts), 1), pos,
-                                      dtype=torch.int32, device=dev)}
+              "positions": torch.full((n, 1), pos, dtype=torch.int32,
+                                      device=dev)}
         if enc_zeros is not None:
             db["enc_out"] = enc_zeros   # a zero encoder output every step
-        logits, caches = decode_step(params, caches, db, cfg)
+        with span("model.decode_step", batch=n):
+            logits, caches = decode_step(params, caches, db, cfg)
+            last, nxt, host_ids = pick(logits)
+        if details:
+            seen.append(last)
         pos += 1
-    return [T.decode(np.asarray(t)) for t in out_tokens]
+    new = torch.tensor(out_tokens, dtype=torch.int64).reshape(max_new, n).T
+    if details:
+        return Generated(new, seen)
+    if isinstance(prompts, torch.Tensor):
+        return new
+    return [T.decode(row.numpy()) for row in new]
 
 
 def main():

@@ -34,8 +34,9 @@ import torch.nn.functional as F
 
 from ..kernels.rglru import rglru_scan
 from ..kernels.wkv6 import wkv6
+from ..obs import REGISTRY, span
 from . import layers as L
-from .config import ModelConfig, MoEConfig
+from .config import ATTN, LOCAL_ATTN, ModelConfig, MoEConfig, rope_for
 from .shard_ctx import (constrain, local_rows, merge_heads, rows_like,
                         run_local, split_heads, tp_out)
 
@@ -172,12 +173,14 @@ def apply_attn(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig,
     attends naively over the ring by the slots' absolute positions;
     prefill runs ``cfg.attention_impl`` and writes each position p of the
     prompt's tail to slot p % S_alloc (taken from batch row 0), so decode
-    continues the ring seamlessly."""
+    continues the ring seamlessly.  q and k take the rope of the layer's
+    kind (``config.rope_for``: ``L`` with a window, else ``A``)."""
     h = L.rms_norm(x, _c(p["ln"], cfg), cfg.norm_eps)
     q, k, v = _qkv(p, h, cfg)
     kv_map = head_kv_map(cfg) if cfg.phys_heads != cfg.n_heads else None
-    q = L.rope(q, ctx.positions, cfg.rope_theta)
-    k = L.rope(k, ctx.positions, cfg.rope_theta)
+    rope = rope_for(cfg, LOCAL_ATTN if window else ATTN)
+    q = L.rope(q, ctx.positions, rope)
+    k = L.rope(k, ctx.positions, rope)
     B, S = x.shape[:2]
     new_cache = None
     if ctx.mode == "decode":
@@ -316,8 +319,9 @@ def _token_choice_dispatch(probs: torch.Tensor, k: int, capacity: int):
 
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Mixture-of-experts FFN with C = :func:`moe_capacity` slots an
-    expert and sequence; router logits and softmax in float32.
+    """Mixture-of-experts FFN; router logits and softmax in float32.
+    A ``dropless`` config runs :func:`apply_moe_grouped`; the others
+    have C = :func:`moe_capacity` slots an expert and sequence.
 
     ``token_choice``: each token's top-k experts
     (:func:`_token_choice_dispatch`); a pair past its expert's capacity
@@ -330,6 +334,8 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     DTensors each rank routes, dispatches and combines its own sequences
     (``shard_ctx.local_rows``); the expert FFN runs on the DTensors."""
     m = cfg.moe
+    if m.dropless:
+        return apply_moe_grouped(p, x, cfg)
     _, S, D = x.shape
     E, k = m.n_experts, m.top_k
     C = moe_capacity(m, S)
@@ -365,6 +371,70 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                       ).index_add(0, rows, contrib)
     out = rows_like(out.reshape(B, S, D).to(x.dtype), h)
     return x + tp_out(constrain(out, "batch", None, None))
+
+
+_M_PAIRS = REGISTRY.counter(
+    "repro_moe_pairs_total", "(token, expert) pairs the dropless MoE "
+    "computed, by expert (counted in traced calls)", labels=("expert",))
+_PAIR_COUNTERS: dict = {}       # the family holds its children weakly
+
+
+def _count_pairs(counts: list) -> int:
+    """Add a call's pairs an expert to ``repro_moe_pairs_total``;
+    returns the number of experts that got rows."""
+    for e, n in enumerate(counts):
+        if n:
+            c = _PAIR_COUNTERS.get(e)
+            if c is None:
+                c = _PAIR_COUNTERS[e] = _M_PAIRS.labels(expert=e)
+            c.inc(n)
+    return sum(1 for n in counts if n)
+
+
+def apply_moe_grouped(p: dict, x: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """Dropless token-choice MoE: every token's top-k experts, the gates
+    renormalized by their sum (``norm_topk_prob``), no capacity.
+
+    The (token, expert) pairs are sorted by expert (a stable argsort),
+    so each expert's rows are one contiguous run; one grouped product a
+    projection (``torch._grouped_mm`` over the experts' runs, bfloat16
+    on the card) runs every expert over exactly its rows, with no slots
+    and no padding.  The results go back to (token, k) order and each
+    token's k gated results are summed by a reduction, which accumulates
+    in float32 and rounds once, in a fixed order (an ``index_add`` in
+    the compute dtype rounds at every add, in the order of its atomics).
+    Routing and the combine run on the whole batch at once: plain
+    tensors, one card.  Spans ``moe.route`` and ``moe.experts`` (tags
+    ``rows``, ``experts_hit``); in a traced call the pairs an expert
+    read back to the host and counted in ``repro_moe_pairs_total``."""
+    m = cfg.moe
+    B, S, D = x.shape
+    T, k = B * S, m.top_k
+    h = L.rms_norm(x, _c(p["ln"], cfg), cfg.norm_eps).reshape(T, D)
+    with span("moe.route", rows=T * k) as sp:
+        logits = h.to(torch.float32) @ p["router"].to(torch.float32)
+        gate, expert = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+        gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+        flat = expert.reshape(-1)                             # (T·k,)
+        order = torch.argsort(flat, stable=True)
+        counts = torch.bincount(flat, minlength=m.n_experts)
+        ends = torch.cumsum(counts, 0).to(torch.int32)
+        hit = _count_pairs(counts.tolist()) if sp.live else None
+        sp.tag(experts_hit=hit)
+    with span("moe.experts", rows=T * k, experts_hit=hit):
+        xs = h.index_select(0, order // k)                    # by expert
+        g = torch._grouped_mm(xs, _c(p["w_gate"], cfg), offs=ends)
+        u = torch._grouped_mm(xs, _c(p["w_up"], cfg), offs=ends)
+        del xs
+        g = F.silu(g).mul_(u)
+        del u
+        y = torch._grouped_mm(g, _c(p["w_down"], cfg), offs=ends)
+        del g
+        # back to (token, choice) order: the inverse of the sort
+        y = y.index_select(0, torch.argsort(order)).view(T, k, D)
+        out = y.mul_(gate.to(y.dtype)[..., None]).sum(1)
+    return x + out.reshape(B, S, D)
 
 
 def _expert_ffn(p: dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -28,6 +28,27 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router: str = "token_choice"    # "token_choice" | "expert_choice"
     router_dtype: str = "float32"
+    # True: every (token, expert) pair is computed (the grouped path of
+    # ``blocks.apply_moe``); ``capacity_factor`` is then not read
+    dropless: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeConfig:
+    """The rotary embedding of one layer kind.  ``default``: inverse
+    frequencies theta^(-2i/Dh).  ``yarn`` (YaRN, arXiv:2309.00071, as
+    Hugging Face's ``_compute_yarn_parameters`` has it): each frequency
+    blended between itself and itself / ``factor`` over a linear ramp
+    from the ``beta_fast`` to the ``beta_slow`` rotation's dimension of
+    ``original_max_position``, and cos and sin scaled by
+    ``attention_factor``."""
+    theta: float = 10_000.0
+    kind: str = "default"               # "default" | "yarn"
+    factor: float = 1.0
+    original_max_position: int = 0
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +83,9 @@ class ModelConfig:
     qkv_bias: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
+    # per layer kind (A, L); None = the default rope at rope_theta
+    rope_global: Optional[RopeConfig] = None
+    rope_local: Optional[RopeConfig] = None
     norm_eps: float = 1e-6
     logit_softcap: float = 0.0
     # rglru specifics
@@ -162,6 +186,13 @@ class ModelConfig:
         n_moe_layers = sum(1 for t in self.layer_types()
                            if t in (ATTN, LOCAL_ATTN))
         return full - n_moe_layers * (expert_p - active_p)
+
+
+def rope_for(cfg, ltype: str) -> RopeConfig:
+    """The rope of an attention layer of kind ``ltype`` in ``cfg``: its
+    own for the kind, else the default rope at ``rope_theta``."""
+    r = cfg.rope_local if ltype == LOCAL_ATTN else cfg.rope_global
+    return r or RopeConfig(theta=cfg.rope_theta)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,10 +16,13 @@ calls at the same sites: no-ops on plain tensors.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
+from .config import RopeConfig
 from .shard_ctx import (alike_steps, constrain, current_mesh, partial_over,
                         run_local, tp_out)
 
@@ -44,15 +47,50 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def rope_inv_freq(r: RopeConfig, dim: int, device=None) -> torch.Tensor:
+    """The (dim // 2,) float32 inverse frequencies of rope ``r`` over a
+    head of ``dim``."""
+    half = dim // 2
+    if r.kind == "default":
+        return r.theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half)
+    if r.kind != "yarn":
+        raise ValueError(f"unknown rope kind {r.kind!r}")
+    pos_freqs = r.theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim)
+
+    def dim_of(rotations: float) -> float:
+        """The dimension that turns ``rotations`` times over the
+        original context."""
+        return dim * math.log(r.original_max_position /
+                              (rotations * 2 * math.pi)) / \
+            (2 * math.log(r.theta))
+
+    low = max(math.floor(dim_of(r.beta_fast)), 0)
+    high = min(math.ceil(dim_of(r.beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(half, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    # 1 keeps a frequency as it is (fast dims), 0 interpolates it
+    keep = 1 - ramp
+    return (1.0 / (r.factor * pos_freqs)) * (1 - keep) + \
+        (1.0 / pos_freqs) * keep
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
-         theta: float = 10_000.0) -> torch.Tensor:
-    """Rotary embedding. x: (..., S, H, Dh), positions: (..., S)."""
+         theta: "float | RopeConfig" = 10_000.0) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, Dh), positions: (..., S).
+    ``theta`` is a default rope's base or a :class:`RopeConfig`."""
+    r = theta if isinstance(theta, RopeConfig) else RopeConfig(theta=theta)
     half = x.shape[-1] // 2
-    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=x.device) / half)
+    freq = rope_inv_freq(r, x.shape[-1], x.device)
     angles = positions[..., None].to(torch.float32) * freq   # (..., S, half)
     cos = torch.cos(angles)[..., None, :]                    # over heads
     sin = torch.sin(angles)[..., None, :]
+    if r.attention_factor != 1.0:
+        cos, sin = cos * r.attention_factor, sin * r.attention_factor
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..obs import REGISTRY
 from . import blocks as B
 from . import layers as L
 from .config import ATTN, LOCAL_ATTN, RGLRU, RWKV, ModelConfig
@@ -51,6 +52,12 @@ from .shard_ctx import (constrain, gathered, local_rows, merge_heads,
 
 BLOCK_TYPES = (ATTN, LOCAL_ATTN, RGLRU, RWKV)
 REMAT_BLOCK = ("block", "block_save_coll")
+_KV_BYTES = REGISTRY.gauge(
+    "repro_kv_cache_bytes", "bytes of the attention K/V rings of the last "
+    "decode caches made, by kind: window (L layers) or full (A layers)",
+    labels=("kind",))
+# the family holds its children weakly
+_KV_GAUGES = {k: _KV_BYTES.labels(kind=k) for k in ("window", "full")}
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -178,10 +185,19 @@ def _cache_for(ltype: str, cfg: ModelConfig, batch: int, s_max: int,
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                device: torch.device) -> list:
     """Decode caches, one per layer; ``s_max`` sizes the attention
-    rings (sliding-window layers hold at most ``cfg.window`` slots)."""
+    rings (sliding-window layers hold at most ``cfg.window`` slots).
+    Sets ``repro_kv_cache_bytes{kind}`` to the rings' bytes."""
     check_supported(cfg)
-    return [_cache_for(lt, cfg, batch, s_max, device)
-            for lt in cfg.layer_types()]
+    caches = [_cache_for(lt, cfg, batch, s_max, device)
+              for lt in cfg.layer_types()]
+    kv = {"window": 0, "full": 0}
+    for lt, c in zip(cfg.layer_types(), caches):
+        if lt in (ATTN, LOCAL_ATTN):
+            kv["window" if lt == LOCAL_ATTN else "full"] += \
+                c.k.nbytes + c.v.nbytes
+    for kind, n in kv.items():
+        _KV_GAUGES[kind].set(n)
+    return caches
 
 
 def _gathered_layer(ltype: str, p: dict, x, ctx: B.Ctx, cfg: ModelConfig):

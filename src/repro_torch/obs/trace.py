@@ -80,6 +80,16 @@ per-layer metrics live in ``bench/metrics/``):
   ``analytics.pagerank.{adjacency,square,upload,iterate}``: the
   analytics' host work outside the planner (key strips, ``Assoc``
   builds, statistics, uploads, enqueues); ``analytics.host_ms``.
+* ``model.prefill`` (``batch``, ``tokens``), ``model.decode_step``
+  (``batch``): ``launch.serve.generate``'s prompt pass and each decode
+  step, each ending once the step's tokens are on the host;
+  ``model.prefill_ms``, ``model.decode_step_ms``, and the steps the
+  roofline readers attribute kernels to.
+* ``moe.route`` (``rows``, ``experts_hit``), ``moe.experts`` (``rows``,
+  ``experts_hit``): the dropless expert layer's routing and grouped
+  products (``models.blocks.apply_moe_grouped``; a traced call reads the
+  pairs an expert back to the host for ``experts_hit`` and
+  ``repro_moe_pairs_total{expert}``); ``moe.grouped_roofline``.
 """
 from __future__ import annotations
 

@@ -40,6 +40,8 @@ from repro_torch.kernels import flash_attention, flash_attention_ref, ops
 from repro_torch.models import blocks as PB
 from repro_torch.models import layers as PL
 
+from _config_schema import port_config
+
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)
 BLOCK_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -374,7 +376,7 @@ def test_swiglu_matches(dtype):
 # ---------------------------------------------------------------------------
 
 def attn_cfg(arch, impl):
-    return dataclasses.replace(jconfigs.smoke_config(arch),
+    return dataclasses.replace(port_config(jconfigs.smoke_config(arch)),
                                attention_impl=impl)
 
 
@@ -462,7 +464,8 @@ def test_head_padding_matches(pad):
     """Head-padded configs (physical heads past the logical ones): the
     kv map keeps the logical grouping and padded heads are masked."""
     head_pad, kv_pad = pad
-    cfg = dataclasses.replace(jconfigs.smoke_config("internlm2-20b"),
+    cfg = dataclasses.replace(port_config(jconfigs.smoke_config(
+                                  "internlm2-20b")),
                               n_kv_heads=2, head_pad=head_pad, kv_pad=kv_pad)
     np.testing.assert_array_equal(PB.head_kv_map(cfg).numpy(),
                                   np.asarray(JB.head_kv_map(cfg)))

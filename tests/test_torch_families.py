@@ -50,6 +50,8 @@ from repro_torch.models import params_from_jax
 from repro_torch.models.config import ShapeConfig
 from repro_torch.tree import tree_leaves, tree_unflatten
 
+from _config_schema import port_config
+
 LIKE_TOL = dict(rtol=1e-4, atol=1e-4)
 TF_TOL = dict(rtol=1e-4, atol=1e-4)
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4          # atol x max|g| of the leaf
@@ -83,7 +85,7 @@ def close(got, want, tol):
 def family_weights(arch):
     """The JAX smoke-config parameters of ``arch`` with the zero inits
     (norm scales) perturbed so every term counts; (cfg, numpy tree)."""
-    cfg = jconfigs.smoke_config(arch)
+    cfg = port_config(jconfigs.smoke_config(arch))
     rng = np.random.default_rng(len(arch))
 
     def perturb(path, a):

@@ -31,6 +31,8 @@ from repro_torch.launch import roofline as R
 from repro_torch.models import shard_ctx as SC
 from repro_torch.models.config import ALL_SHAPES
 
+from _config_schema import as_jax_schema
+
 ROOT = Path(__file__).resolve().parents[1]
 TERMS_RTOL = 1e-12
 
@@ -198,7 +200,7 @@ def test_roofline_analyze(jax_launch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_unit_config_equals_jax(jax_launch, arch):
     """The calibration's unit variant, field by field."""
-    got = dataclasses.asdict(C.unit_config(arch))
+    got = as_jax_schema(C.unit_config(arch))
     want = dataclasses.asdict(jax_launch["calibrate"].unit_config(arch))
     assert got == want
 

@@ -48,6 +48,8 @@ from repro_torch.models import layers as PL
 from repro_torch.models import model as PM
 from repro_torch.models import params_from_jax
 
+from _config_schema import as_jax_schema, port_config
+
 LIKE_TOL = dict(rtol=1e-4, atol=1e-4)
 FORMS_TOL = dict(rtol=1e-3, atol=1e-3)
 TF_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -123,11 +125,11 @@ def test_configs_match(arch):
     for name in (arch, arch.replace("_", "-")):
         assert pconfigs.canonical(name) == jconfigs.canonical(name)
     p, j = pconfigs.get_config(arch), jconfigs.get_config(arch)
-    assert dataclasses.asdict(p) == dataclasses.asdict(j)
+    assert as_jax_schema(p) == dataclasses.asdict(j)
     assert p.n_params() == j.n_params()
     assert p.layer_types() == j.layer_types()
     assert p.padded_vocab == j.padded_vocab
-    assert dataclasses.asdict(pconfigs.smoke_config(arch)) == \
+    assert as_jax_schema(pconfigs.smoke_config(arch)) == \
         dataclasses.asdict(jconfigs.smoke_config(arch))
 
 
@@ -423,7 +425,7 @@ def family_weights(arch):
     """The JAX smoke-config parameters of ``arch`` with the zero inits
     (norm scales, conv bias, qkv biases) perturbed so every term counts;
     (cfg, numpy tree), made once per arch."""
-    cfg = jconfigs.smoke_config(arch)
+    cfg = port_config(jconfigs.smoke_config(arch))
     rng = np.random.default_rng(len(arch))
 
     def perturb(path, a):

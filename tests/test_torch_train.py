@@ -43,6 +43,8 @@ from repro_torch.device import set_device
 from repro_torch.models import layers as PL
 from repro_torch.models import model as PM
 from repro_torch.models import params_from_jax
+
+from _config_schema import port_config
 from repro_torch.train import optimizer as PO
 from repro_torch.train import trainer as PT
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -69,7 +71,7 @@ def _cpu():
 def weights(arch):
     """The JAX smoke parameters of ``arch`` with every leaf perturbed
     (so the zero inits count); (cfg, numpy tree)."""
-    cfg = jconfigs.smoke_config(arch)
+    cfg = port_config(jconfigs.smoke_config(arch))
     rng = np.random.default_rng(len(arch))
     tree = jax.tree.map(
         lambda a: (np.asarray(a) + rng.normal(0, 0.02, a.shape))
