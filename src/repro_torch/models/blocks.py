@@ -165,13 +165,37 @@ def _write_cache(write, cache: AttnCache, k, v, positions):
                      (0, 1, 2), cache.k, cache.v, cache.pos, k, v, positions)
 
 
+# Every decode attention counts its route; /metrics shows the counts as
+# repro_attn_decode_total{path=...}.
+_ATTN_DECODE_FAMILY = REGISTRY.counter(
+    "repro_attn_decode_total", "Decode attention calls over the K/V rings "
+    "by route", labels=("path",))
+_ATTN_DECODE = {p: _ATTN_DECODE_FAMILY.labels(path=p)
+                for p in ("grouped", "expanded")}
+
+
+def attn_decode_counts() -> dict:
+    """Snapshot of the decode attention counters by route (a copy, safe
+    to diff)."""
+    return {p: c.value for p, c in _ATTN_DECODE.items()}
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def apply_attn(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig,
                window: int = 0):
     """Self-attention sublayer (pre-norm). Returns (residual_out, cache).
 
     Decode writes the step's K/V at ring slot ``index % S_alloc`` and
-    attends naively over the ring by the slots' absolute positions;
-    prefill runs ``cfg.attention_impl`` and writes each position p of the
+    attends over the ring by the slots' absolute positions: grouped by
+    KV head over the rings as they are (``layers.attention_decode``), or,
+    on sharded (DTensor) rings and head-padded archs (``kv_map``), naively
+    over the rings repeated to the query heads; the route is counted in
+    ``repro_attn_decode_total{path="grouped"|"expanded"}``.  Prefill
+    runs ``cfg.attention_impl`` and writes each position p of the
     prompt's tail to slot p % S_alloc (taken from batch row 0), so decode
     continues the ring seamlessly.  q and k take the rope of the layer's
     kind (``config.rope_for``: ``L`` with a window, else ``A``)."""
@@ -199,8 +223,13 @@ def apply_attn(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig,
         kc, vc, pos = _write_cache(write, cache, k, v, ctx.positions)
         new_cache = AttnCache(kc, vc, pos, cache.index + S)
         # ring entries carry absolute positions; -1 slots stay masked
-        out = L.attention(q, kc, vc, ctx.positions, pos, causal=True,
-                          window=window, impl="naive", kv_map=kv_map)
+        if kv_map is None and not _is_dtensor(q) and not _is_dtensor(kc):
+            _ATTN_DECODE["grouped"].inc()
+            out = L.attention_decode(q, kc, vc, ctx.positions, pos, window)
+        else:
+            _ATTN_DECODE["expanded"].inc()
+            out = L.attention(q, kc, vc, ctx.positions, pos, causal=True,
+                              window=window, impl="naive", kv_map=kv_map)
     else:
         out = L.attention(q, k, v, ctx.positions, ctx.positions,
                           causal=True, window=window,

@@ -136,6 +136,45 @@ def attention_naive(q, k, v, q_pos, k_pos, causal: bool = True,
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+def attention_decode(q, k, v, q_pos, k_pos, window: int = 0
+                     ) -> torch.Tensor:
+    """Causal attention of a decode step over the K/V rings, grouped by
+    KV head: what :func:`attention_naive` returns for q (B,Sq,H,Dh) and
+    rings k, v (B,S,KV,Dh), H = G·KV, with its masks, without repeating
+    the rings to H heads or upcasting them.
+
+    Each ring is read once, in its dtype, as (B, S, KV·Dh) — a view.
+    The queries go into a block-diagonal (B, Sq·H, KV·Dh) matrix, each
+    head's row holding its query in its KV head's Dh columns and zeros
+    elsewhere, so one batched product gives every head's float32 scores
+    (bfloat16 operands, float32 accumulation, as the reference's
+    upcast).  The mask and the softmax are float32; the probabilities
+    are rounded to the ring's dtype and one batched product with the V
+    ring gives (Sq·H, KV·Dh), of which each head keeps its KV head's
+    block.  The zeros cost KV times the needed products; at decode that
+    is H·Sq products a ring byte, so reading the rings still bounds the
+    products."""
+    b, sq, h, dh = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qbd = q.new_zeros((b, sq, kv, g, kv, dh))
+    torch.diagonal(qbd, dim1=2, dim2=4).copy_(
+        q.view(b, sq, kv, g, dh).permute(0, 1, 3, 4, 2))
+    qbd = qbd.view(b, sq * h, kv * dh)
+    kr, vr = k.reshape(b, s, kv * dh), v.reshape(b, s, kv * dh)
+    if q.is_cuda and q.dtype == k.dtype in (torch.bfloat16, torch.float16):
+        scores = torch.bmm(qbd, kr.transpose(1, 2), out_dtype=torch.float32)
+    else:   # the CPU has no such overload: the upcast products are equal
+        scores = torch.bmm(qbd.to(torch.float32),
+                           kr.to(torch.float32).transpose(1, 2))
+    scores = scores.view(b, sq, h, s) * dh ** -0.5
+    scores = scores + _mask_bias(q_pos, k_pos, True, window)[:, :, None]
+    p = torch.softmax(scores, dim=-1).to(v.dtype).view(b, sq * h, s)
+    out = torch.bmm(p, vr).view(b, sq, kv, g, kv, dh)
+    return torch.diagonal(out, dim1=2, dim2=4).permute(
+        0, 1, 4, 2, 3).reshape(b, sq, h, dh)
+
+
 def _online_block(q_blk, k_blk, v_blk, bias, carry):
     """One online-softmax update. q_blk:(B,Bq,H,Dh), k/v:(B,Ck,H,Dh),
     bias:(B,Bq,Ck) or broadcastable; carry=(m,l,acc)."""

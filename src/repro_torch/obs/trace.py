@@ -84,7 +84,10 @@ per-layer metrics live in ``bench/metrics/``):
   (``batch``): ``launch.serve.generate``'s prompt pass and each decode
   step, each ending once the step's tokens are on the host;
   ``model.prefill_ms``, ``model.decode_step_ms``, and the steps the
-  roofline readers attribute kernels to.
+  roofline readers attribute kernels to.  Within a step each attention
+  layer counts its route over the K/V rings in
+  ``repro_attn_decode_total{path}`` (``grouped``/``expanded``,
+  ``models.blocks.apply_attn``, traced or not); no metric reads it.
 * ``moe.route`` (``rows``, ``experts_hit``), ``moe.experts`` (``rows``,
   ``experts_hit``): the dropless expert layer's routing and grouped
   products (``models.blocks.apply_moe_grouped``; a traced call reads the

@@ -35,9 +35,12 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.models import blocks as JB
 from repro.models import layers as JL
+from repro_torch.configs import smoke_config
 from repro_torch.device import set_device
 from repro_torch.kernels import flash_attention, flash_attention_ref, ops
+from repro_torch.launch.serve import generate
 from repro_torch.models import blocks as PB
+from repro_torch.models import init_params
 from repro_torch.models import layers as PL
 
 from _config_schema import port_config
@@ -57,6 +60,13 @@ FLASH_TOL_BF16 = 2e-2         # against the plain version, bf16 inputs
 FLASH_F32_TOL = 1e-2          # against float32 arithmetic
 FLASH_BANDS, FLASH_BAND_TOL = 4, 5e-3   # relative Frobenius, by row band
 BLOCK_K = 64                  # keys a tile of the bf16 kernel
+# the grouped decode attention against the reference: float32 to a few
+# units of its last place (the products sum in another order), bfloat16
+# to its last place
+DECODE_TOL = {"float32": dict(rtol=2e-6, atol=2e-6),
+              "bfloat16": dict(rtol=2 ** -7, atol=0)}
+# (G, KV): multi-head (KV = H), two groups, Mellum2's 8 × 4, MQA
+DECODE_GROUPS = [(1, 4), (4, 2), (8, 4), (16, 1)]
 NEG_INF = -1e30
 
 
@@ -295,6 +305,42 @@ def test_expand_kv_groups_consecutive_heads():
           dict(rtol=0, atol=0))
 
 
+def ring_positions(B, S, Sq, ring):
+    """The step's positions and the slot positions of rings of S slots
+    once a decode step of Sq tokens is written: ``unwritten`` has fewer
+    positions than slots (-1 past them), ``wrapped`` has written past
+    its end, each slot holding the latest position ≡ slot mod S; each
+    row has written its own count."""
+    qp = np.empty((B, Sq), np.int32)
+    kp = np.full((B, S), -1, np.int32)
+    for b in range(B):
+        n = S - 5 + b if ring == "unwritten" else 2 * S + 3 + b
+        for p in range(max(0, n - S), n):
+            kp[b, p % S] = p
+        qp[b] = np.arange(n - Sq, n)
+    return qp, kp
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq", [1, 3])
+@pytest.mark.parametrize("ring", ["unwritten", "wrapped"])
+@pytest.mark.parametrize("window", [0, 8])
+@pytest.mark.parametrize("G,KV", DECODE_GROUPS)
+def test_attention_decode_matches_naive_over_expanded_rings(G, KV, window,
+                                                             ring, Sq, dtype):
+    """The grouped decode attention returns what the reference returns
+    over the rings repeated to the query heads."""
+    B, S, Dh = 3, 37, 16
+    dt = getattr(torch, dtype)
+    q, k, v = (t(a).to(dt) for a in qkv(B, Sq, S, G * KV, KV, Dh,
+                                         seed=G + KV))
+    qp, kp = map(t, ring_positions(B, S, Sq, ring))
+    got = PL.attention_decode(q, k, v, qp, kp, window)
+    want = PL.attention_naive(q, k, v, qp, kp, True, window)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got, want, **DECODE_TOL[dtype])
+
+
 @pytest.mark.parametrize("triangular", [False, True])
 @pytest.mark.parametrize("causal,window", MASKS)
 @pytest.mark.parametrize("S,chunk", [(64, 16), (50, 16)])
@@ -457,6 +503,88 @@ def test_decode_leaves_the_cache_passed_in_unchanged():
                                         "decode", cache), cfg)
     assert int((cache.pos >= 0).sum()) == 0 and new.index == 1
     assert int((new.pos >= 0).sum()) == 1
+
+
+def mellum2_shaped(dtype):
+    """Mellum2's smoke config (window 16, three sliding layers to a full
+    one) at Mellum2's grouping of 8 query heads a KV head, over 2."""
+    return dataclasses.replace(smoke_config("mellum2-12b-a2.5b"),
+                               n_heads=16, n_kv_heads=2, dtype=dtype)
+
+
+def generate_mellum2_shaped(dtype, prompt=32, new=24):
+    """Prefill ``prompt`` tokens (twice the window), then ``new`` decode
+    steps past it; the details (tokens, every step's logits)."""
+    cfg = mellum2_shaped(dtype)
+    params = init_params(cfg, torch.Generator().manual_seed(7))
+    ids = torch.randint(0, cfg.vocab, (2, prompt),
+                        generator=torch.Generator().manual_seed(8))
+    return cfg, generate(cfg, params, ids, max_new=new, s_max=prompt + new,
+                         details=True)
+
+
+def expanded_route(q, k, v, q_pos, k_pos, window=0):
+    """The decode attention as it was: over the rings repeated to the
+    query heads."""
+    return PL.attention(q, k, v, q_pos, k_pos, causal=True, window=window,
+                        impl="naive")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_decode_matches_expanded_route_past_the_window(monkeypatch,
+                                                               dtype):
+    """A Mellum2-shaped model, prefill then decode past the sliding
+    window, on the grouped route and on the expanded one: the same
+    tokens and logits (bfloat16 bit for bit)."""
+    _, got = generate_mellum2_shaped(dtype)
+    monkeypatch.setattr(PL, "attention_decode", expanded_route)
+    _, want = generate_mellum2_shaped(dtype)
+    assert torch.equal(got.tokens, want.tokens)
+    tol = dict(rtol=0, atol=0) if dtype == "bfloat16" else BLOCK_TOL
+    for g, w in zip(got.logits, want.logits):
+        torch.testing.assert_close(g, w, **tol)
+
+
+def test_decode_counts_one_grouped_call_a_layer_and_step(monkeypatch):
+    """Every attention layer of every decode step takes the grouped
+    route on plain tensors, which never repeats the rings (prefill
+    does, in the flash kernel's plain version)."""
+    modes, apply_attn, expand_kv = [], PB.apply_attn, PL._expand_kv
+
+    def attn(p, x, ctx, cfg, window=0):
+        modes.append(ctx.mode)
+        try:
+            return apply_attn(p, x, ctx, cfg, window)
+        finally:
+            modes.pop()
+
+    def no_expand_in_decode(*a, **kw):
+        assert modes[-1] != "decode", "the grouped route repeated a ring"
+        return expand_kv(*a, **kw)
+    monkeypatch.setattr(PB, "apply_attn", attn)
+    monkeypatch.setattr(PL, "_expand_kv", no_expand_in_decode)
+    before = PB.attn_decode_counts()
+    cfg, _ = generate_mellum2_shaped("float32", new=5)
+    after = PB.attn_decode_counts()
+    assert after["grouped"] - before["grouped"] == cfg.n_layers * 5
+    assert after["expanded"] == before["expanded"]
+
+
+def test_head_padded_decode_counts_expanded():
+    """A head-padded arch (its ``kv_map``) decodes on the expanded
+    route."""
+    cfg = dataclasses.replace(port_config(jconfigs.smoke_config(
+                                  "internlm2-20b")),
+                              n_kv_heads=2, head_pad=8, kv_pad=6)
+    p = {n: t(a) for n, a in attn_params(cfg, seed=4).items()}
+    cache = PB.init_attn_cache(cfg, 1, 8, torch.device("cpu"))
+    before = PB.attn_decode_counts()
+    PB.apply_attn(p, torch.ones((1, 1, cfg.d_model)),
+                  PB.Ctx(torch.zeros((1, 1), dtype=torch.int32), "decode",
+                         cache), cfg)
+    after = PB.attn_decode_counts()
+    assert after["expanded"] - before["expanded"] == 1
+    assert after["grouped"] == before["grouped"]
 
 
 @pytest.mark.parametrize("pad", [(8, 6), (8, 2)])

@@ -15,7 +15,8 @@ for flash_attention in float32 rtol=atol=2e-5 (the JAX package's own
 tolerance between its flash kernel and the naive form) and in bfloat16
 rtol=atol=1e-2 against the plain version on the same values in float32
 (the kernel computes in float32 and rounds only its output to bf16, half
-an ulp: at most 0.0078 below 4); for segsum and segsum_windowed
+an ulp: at most 0.0078 below 4), the same for the grouped decode
+attention against the naive form on the same bf16 values; for segsum and segsum_windowed
 rtol=1e-5, atol=1e-4·max(1, max|plain|) (another summation order; in
 segsum, float atomics add in an order that changes from run to run) and
 exact equality for integer counts (below 2^24, every order gives the same
@@ -405,6 +406,29 @@ def test_flash_attention_rejects(card):
     with pytest.raises(ValueError):       # k not 16-byte aligned
         flash_attention(q, wide[..., 2:66], v)
     assert ops.kernel_launches()["flash_attention"] == before
+
+
+@pytest.mark.parametrize("S,window", [(4160, 0), (1024, 512)])
+def test_attention_decode_on_card_matches_naive(card, S, window):
+    """The grouped decode attention's card route (bfloat16 products with
+    a float32 result) against the reference over the repeated rings, on
+    the same bfloat16 values; it allocates no float32 or repeated copy
+    of a ring (under half a ring's bytes in all)."""
+    B, H, KV, Dh = 8, 32, 4, 128
+    q, k, v = attn_case(B, 1, S, H, KV, Dh, torch.bfloat16, seed=S,
+                        dev=card)
+    k_pos = torch.arange(S, device=card, dtype=torch.int32).repeat(B, 1)
+    k_pos[1::2, S - 7:] = -1                  # odd rows: unwritten slots
+    q_pos = k_pos.amax(1, keepdim=True)
+    want = layers.attention_naive(q, k, v, q_pos, k_pos, True, window)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = layers.attention_decode(q, k, v, q_pos, k_pos, window)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < k.nbytes // 2
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got, want, **ATTN_BF16_TOL)
 
 
 def test_kernel_attributes(card):
