@@ -17,10 +17,10 @@ DAG and a small planner executes it in one pass:
   apply as one masked pass over the csr payload, skipping the per-stage
   triple rebuild;
 * **device lowering** — large-nnz reductions (``sum``) and vector-shaped
-  semiring matmuls lower to the device — the hand-written ELL SpMV/SpMM
-  CUDA kernels (:mod:`repro_torch.kernels`), or
-  :class:`repro_torch.core.sparse.COO` segment reductions with the
-  kernels switched off — instead of scipy on host.
+  semiring matmuls lower to the device instead of scipy on host.  Sums
+  run :class:`repro_torch.core.sparse.COO` segment reductions; products
+  run the hand-written ELL SpMV/SpMM kernels (:mod:`repro_torch.kernels`):
+  CUDA on the card, their plain versions on CPU tensors.
 
 Eager semantics are the specification: for every host-executed chain,
 ``lazy_chain.eval() == eager_chain`` (see tests/test_binding.py).  The
@@ -30,7 +30,6 @@ non-integer payloads match eager to ~1e-7 relative rather than exactly.
 """
 from __future__ import annotations
 
-import os
 from typing import Any, Optional
 
 import numpy as np
@@ -45,20 +44,17 @@ from ..obs.metrics import REGISTRY as _REGISTRY
 from ..obs.trace import span as _span
 from .assoc import Assoc
 
-# nnz at which reductions/matvecs move to the device path; small payloads
-# stay on host where scipy beats dispatch+transfer overhead.
+# nnz at which sums and products move to the device; small payloads stay
+# on host where scipy beats dispatch+transfer overhead.  A sum tests its
+# operand, a two-part product its aligned factor, a chain its largest
+# factor.
 DEVICE_NNZ_THRESHOLD = 32768
 
-# Route device matvecs/multivec products through the ELL kernels
-# (repro_torch.kernels.spmv_ell / spmm_ell: CUDA on the card, their plain
-# versions on CPU tensors) instead of the COO segment reduction.  On by
-# default; REPRO_TORCH_USE_ELL_KERNELS=0 turns it off process-wide.
-USE_ELL_KERNELS = os.environ.get("REPRO_TORCH_USE_ELL_KERNELS", "1") == "1"
-
-# Device launch odometer: every device-lowered matvec/multivec product
-# bumps its counter.  This is the observability hook the batch-fusion
-# tests (and the serving layer's stats) use to prove N chains executed
-# as ONE fused SpMM launch instead of N SpMV launches.  The counters
+# Device launch odometer: every product _device_product sends to an ELL
+# kernel bumps its counter (spmv for one vector, spmm for a block).  This
+# is the observability hook the batch-fusion tests (and the serving
+# layer's stats) use to prove N chains executed as ONE fused SpMM launch
+# instead of N SpMV launches.  The counters
 # are atomic registry counters (repro_torch.obs) — the old bare-dict version
 # raced under the gateway's concurrent reader threads — and surface in
 # /metrics as repro_kernel_launches_total{kernel=...}.
@@ -481,24 +477,18 @@ class _Executor:
     # -- matmul with optional device lowering ------------------------------
     def _exec_matmul(self, node: LazyAssoc, sp) -> Assoc:
         # Fused chain lowering: a left-spine matmul chain ending in a
-        # vector (A @ B @ x) runs as successive device spmvs with the
+        # vector (A @ B @ x) runs as successive device products with the
         # intermediate vector staying on device — no host round-trips
         # between factors.  Reassociation (A@B)@x → A@(B@x) is licensed
         # by plus_times semiring algebra (float32 accumulation, same
         # precision contract as all device lowering).
-        factors = []
-        cur = node
-        while cur.op == "matmul":
-            factors.append(cur.children[1])
-            cur = cur.children[0]
-        factors.append(cur)
-        factors.reverse()               # [A, B, ..., x]
-        if len(factors) >= 3:
-            mats = [self.run(f) for f in factors]
-            out = _device_matmul_chain(mats)
-            if out is not None:
+        parts = _chain_parts(node)      # [A, B, ..., x]
+        if len(parts) >= 3:
+            mats = [self.run(f) for f in parts]
+            outs = _lower_chain(mats[:-1], mats[-1:])
+            if outs is not None:
                 sp.tag(route="chain")
-                return out
+                return outs[0]
         a = self.run(node.children[0])
         b = self.run(node.children[1])
         with _span("planner.exec.align") as al:
@@ -507,12 +497,9 @@ class _Executor:
         vector_out = b.col.shape[0] == 1 and asm.nnz >= DEVICE_NNZ_THRESHOLD
         sp.tag(route="spmv" if vector_out else "host")
         if vector_out:
-            y = _device_spmv(asm, np.asarray(bsm.todense()).ravel())
-            sm = S.scipy_from_triples(
-                np.arange(y.shape[0]), np.zeros(y.shape[0], np.int64),
-                y, (y.shape[0], 1))
-            sm.eliminate_zeros()
-            return Assoc._from_parts(a.row, b.col, None, sm)._compact()
+            x = S.to_device(np.asarray(bsm.todense()).ravel(), torch.float32)
+            y = _device_product(asm, x).cpu().numpy().astype(np.float64)
+            return _column(a.row, b.col, y)
         return Assoc._from_parts(a.row, b.col, None, asm @ bsm)._compact()
 
     # -- sum with device lowering ------------------------------------------
@@ -566,37 +553,26 @@ def _ell_pack(asm):
     return torch.from_numpy(ecols).to(dev), torch.from_numpy(evals).to(dev)
 
 
-def _device_spmv_dev(asm, x):
-    """y = A @ x on device, device tensor in/out: the ELL SpMV kernel
-    (``USE_ELL_KERNELS``), or the COO segment reduction."""
-    with _span("kernel.spmv", nnz=asm.nnz):
-        _KERNEL_COUNTERS["spmv"].inc()
-        if USE_ELL_KERNELS:
-            ecols, evals = _ell_pack(asm)
-            return kspmv.spmv_ell(ecols, evals,
-                                  x.to(torch.float32).contiguous())
-        coo = S.coo_from_scipy(asm)
-        return S.spmv(coo, x)
+def _device_product(fsm, Y: torch.Tensor) -> torch.Tensor:
+    """``fsm @ Y`` on device through the ELL kernels: a 1-D ``Y`` by
+    ``spmv_ell``, an (n, b) block by ``spmm_ell``, the batched unit that
+    answers all b queries in one launch."""
+    one = Y.dim() == 1
+    name = "spmv" if one else "spmm"
+    tags = {} if one else {"b": int(Y.shape[1])}
+    with _span(f"kernel.{name}", nnz=fsm.nnz, **tags):
+        _KERNEL_COUNTERS[name].inc()
+        kernel = kspmv.spmv_ell if one else kspmm.spmm_ell
+        return kernel(*_ell_pack(fsm), Y.to(torch.float32).contiguous())
 
 
-def _device_spmm_dev(asm, X):
-    """Y = A @ X on device with X a dense (n, b) multi-vector — the
-    batched unit: one launch answers all b queries.  The ELL SpMM kernel
-    under the same ``USE_ELL_KERNELS`` switch as the matvec path, COO
-    segment reduction otherwise."""
-    with _span("kernel.spmm", nnz=asm.nnz, b=int(X.shape[1])):
-        _KERNEL_COUNTERS["spmm"].inc()
-        if USE_ELL_KERNELS:
-            ecols, evals = _ell_pack(asm)
-            return kspmm.spmm_ell(ecols, evals,
-                                  X.to(torch.float32).contiguous())
-        coo = S.coo_from_scipy(asm)
-        return S.spmm(coo, X)
-
-
-def _device_spmv(asm, x: np.ndarray) -> np.ndarray:
-    y = _device_spmv_dev(asm, S.to_device(x, torch.float32))
-    return y.cpu().numpy().astype(np.float64)
+def _column(rkeys: np.ndarray, ckey: np.ndarray, v: np.ndarray) -> Assoc:
+    """The one-column Assoc of host vector ``v`` over ``rkeys`` and the
+    column key ``ckey``, its zeros and empty rows dropped."""
+    n = v.shape[0]
+    sm = S.scipy_from_triples(np.arange(n), np.zeros(n, np.int64), v, (n, 1))
+    sm.eliminate_zeros()
+    return Assoc._from_parts(rkeys, ckey, None, sm)._compact()
 
 
 def _align_factor(F: Assoc, y_keys: np.ndarray):
@@ -617,39 +593,48 @@ def _take_rows(y: torch.Tensor, ix) -> torch.Tensor:
     return y.index_select(0, keep.to(y.device))
 
 
-def _device_matmul_chain(mats) -> Optional[Assoc]:
-    """Lower A @ B @ ... @ x to successive device spmvs, keeping the
-    intermediate vector on device between factors.  Returns None when
-    the chain is not eligible (non-vector tail, empty factor, or every
-    factor below DEVICE_NNZ_THRESHOLD) so the caller falls back to
-    pairwise host matmul."""
-    *factors, vec = mats
-    if vec.col.shape[0] != 1:
+def _lower_chain(factors, vecs) -> Optional[list]:
+    """Lower the chains A @ B @ ... @ x_j (one factor list, one or more
+    vectors) to one device product per factor, the intermediate staying
+    on device.  One vector stays a 1-D ``y`` (SpMV); two or more stack
+    into the zero-padded block X = [x_1 … x_b] (SpMM), so every factor
+    streams from memory once for the whole batch, and column j
+    reproduces chain j exactly under plus_times (padding zeros
+    contribute nothing).  Returns the result columns, or None when the
+    chain does not lower (a vector that is not one nonempty column, an
+    empty factor, or every factor below DEVICE_NNZ_THRESHOLD) so the
+    callers fall back to host matmuls."""
+    if any(v.col.shape[0] != 1 or v.nnz == 0 for v in vecs):
         return None
-    if any(m.nnz == 0 for m in mats):
+    if any(f.nnz == 0 for f in factors):
         return None
     if max(f.nnz for f in factors) < DEVICE_NNZ_THRESHOLD:
         return None
-    y_keys = vec.row                    # sorted key dictionary
-    y = S.to_device(np.asarray(vec._numeric_sm().todense()).ravel(),
-                    torch.float32)
+    y_keys = vecs[0].row
+    for v in vecs[1:]:
+        y_keys = K.align(y_keys, v.row, "union").keys
+    X = np.zeros((y_keys.shape[0], len(vecs)), np.float32)
+    for j, v in enumerate(vecs):
+        # v.row ⊆ y_keys, both sorted; a lone vector's rows are y_keys
+        idx = slice(None) if v.row is y_keys else \
+            np.searchsorted(y_keys, v.row)
+        X[idx, j] = np.asarray(v._numeric_sm().todense()).ravel()
+    Y = S.to_device(X[:, 0] if len(vecs) == 1 else X, torch.float32)
     for F in reversed(factors):
         with _span("planner.exec.align") as al:
             fsm, inner = _align_factor(F, y_keys)
             al.tag(path=inner.path)
-        if fsm is None:
-            y_keys = F.row
-            y = torch.zeros(F.row.shape[0], dtype=torch.float32,
-                            device=y.device)
-            continue
-        y = _device_spmv_dev(fsm, _take_rows(y, inner.ib))
         y_keys = F.row
-    yv = y.cpu().numpy().astype(np.float64)     # single host transfer
-    sm = S.scipy_from_triples(
-        np.arange(yv.shape[0]), np.zeros(yv.shape[0], np.int64),
-        yv, (yv.shape[0], 1))
-    sm.eliminate_zeros()
-    return Assoc._from_parts(y_keys, vec.col, None, sm)._compact()
+        Y = (Y.new_zeros((F.row.shape[0],) + Y.shape[1:]) if fsm is None
+             else _device_product(fsm, _take_rows(Y, inner.ib)))
+    Yh = Y.cpu().numpy().astype(np.float64)     # single host transfer
+    Yh = Yh.reshape(Yh.shape[0], -1)
+    return [_column(y_keys, v.col, Yh[:, j]) for j, v in enumerate(vecs)]
+
+
+# The batch route calls the chain by this name: the benchmark's fault
+# test (bench/tests/test_bench_cells.py, ``_half_batch``) patches it.
+_device_matmul_chain_multi = _lower_chain
 
 
 # ---------------------------------------------------------------------------
@@ -680,7 +665,7 @@ def eval_batch(exprs) -> list:
     * **SpMM chain fusion** — matvec chains over identical factor lists
       (same structural scan key, different tail vectors) stack their
       vectors into a dense multi-vector and run as one device SpMM
-      launch per factor (:func:`_device_spmm_dev`) instead of N SpMV
+      launch per factor (:func:`_lower_chain`) instead of N SpMV
       launches, the intermediate multi-vector staying on device.
 
     Returns the evaluated :class:`Assoc` list, aligned with the input.
@@ -738,18 +723,15 @@ def _prefetch_batch_scans(plans, ex: "_Executor") -> None:
                 ex._memo[key] = a
 
 
-def _chain_parts(node: LazyAssoc):
-    """[A, B, ..., x] for a left-spine matmul chain root; None else."""
-    if node.op != "matmul":
-        return None
+def _chain_parts(node: LazyAssoc) -> list:
+    """[A, B, ..., x] for a left-spine matmul chain root; [node] when it
+    is no product."""
     parts = []
-    cur = node
-    while cur.op == "matmul":
-        parts.append(cur.children[1])
-        cur = cur.children[0]
-    parts.append(cur)
-    parts.reverse()
-    return parts
+    while node.op == "matmul":
+        parts.append(node.children[1])
+        node = node.children[0]
+    parts.append(node)
+    return parts[::-1]
 
 
 def _fuse_chain_groups(plans, ex: "_Executor") -> None:
@@ -759,7 +741,7 @@ def _fuse_chain_groups(plans, ex: "_Executor") -> None:
     groups: dict = {}
     for p in plans:
         parts = _chain_parts(p)
-        if parts is None or len(parts) < 2:
+        if len(parts) < 2:
             continue
         fkey = tuple(_skey(f) for f in parts[:-1])
         # dedupe by root skey — exact duplicates are already CSE'd
@@ -782,48 +764,3 @@ def _fuse_chain_groups(plans, ex: "_Executor") -> None:
             continue
         for (rkey, _), out in zip(elig, outs):
             ex._memo[rkey] = out
-
-
-def _device_matmul_chain_multi(factors, vecs) -> Optional[list]:
-    """Lower N chains A @ B @ ... @ x_j (identical factors, different
-    vectors) to successive device SpMMs over the stacked multi-vector
-    X = [x_1 … x_N]: every factor streams from memory once for the whole
-    batch.  Column j of the zero-padded X reproduces chain j exactly
-    under plus_times (padding zeros contribute nothing), so each result
-    column equals its chain's :func:`_device_matmul_chain` output.
-    Returns None when ineligible (empty factor, or all factors below
-    DEVICE_NNZ_THRESHOLD) so the callers fall back per chain."""
-    if any(f.nnz == 0 for f in factors):
-        return None
-    if max(f.nnz for f in factors) < DEVICE_NNZ_THRESHOLD:
-        return None
-    y_keys = vecs[0].row
-    for v in vecs[1:]:
-        y_keys = K.align(y_keys, v.row, "union").keys
-    b = len(vecs)
-    X = np.zeros((y_keys.shape[0], b), np.float32)
-    for j, v in enumerate(vecs):
-        idx = np.searchsorted(y_keys, v.row)    # v.row ⊆ y_keys, sorted
-        X[idx, j] = np.asarray(v._numeric_sm().todense()).ravel()
-    Y = S.to_device(X, torch.float32)
-    for F in reversed(factors):
-        with _span("planner.exec.align") as al:
-            fsm, inner = _align_factor(F, y_keys)
-            al.tag(path=inner.path)
-        if fsm is None:
-            y_keys = F.row
-            Y = torch.zeros((F.row.shape[0], b), dtype=torch.float32,
-                            device=Y.device)
-            continue
-        Y = _device_spmm_dev(fsm, _take_rows(Y, inner.ib))
-        y_keys = F.row
-    Yh = Y.cpu().numpy().astype(np.float64)     # single host transfer
-    outs = []
-    for j, v in enumerate(vecs):
-        col = Yh[:, j]
-        sm = S.scipy_from_triples(
-            np.arange(col.shape[0]), np.zeros(col.shape[0], np.int64),
-            col, (col.shape[0], 1))
-        sm.eliminate_zeros()
-        outs.append(Assoc._from_parts(y_keys, v.col, None, sm)._compact())
-    return outs

@@ -3,9 +3,8 @@ package: matvec chains, device sums and ``eval_batch`` SpMM fusion, with
 ``DEVICE_NNZ_THRESHOLD`` at 1 so every product lowers.
 
 Both packages see the same table contents; launch counts must agree
-(one ``spmm`` per factor for a fused batch), and results agree with the
-ELL kernels switched on and off.  Tolerance: rtol=1e-5, atol=1e-6 on
-device-lowered floats.
+(one ``spmm`` per factor for a fused batch), and so must results.
+Tolerance: rtol=1e-5, atol=1e-6 on device-lowered floats.
 """
 import numpy as np
 import pytest
@@ -73,10 +72,8 @@ def delta(before, after):
     return {k: after[k] - before[k] for k in before}
 
 
-@pytest.mark.parametrize("kernels", [True, False])
 class TestLowering:
-    def test_batch_one_spmm_launch(self, monkeypatch, kernels):
-        monkeypatch.setattr(X, "USE_ELL_KERNELS", kernels)
+    def test_batch_one_spmm_launch(self):
         T, JT = tables(weighted=True)
         vs = [seed_vecs(j, w=0.5 + j) for j in range(8)]
         c0, j0, k0 = X.launch_counts(), JX.launch_counts(), \
@@ -90,8 +87,7 @@ class TestLowering:
         for g, w in zip(got, want):
             assert_assoc_close(g, w)
 
-    def test_two_factor_batch_two_launches(self, monkeypatch, kernels):
-        monkeypatch.setattr(X, "USE_ELL_KERNELS", kernels)
+    def test_two_factor_batch_two_launches(self):
         T, JT = tables()
         vs = [seed_vecs(j) for j in range(4)]
         c0, j0 = X.launch_counts(), JX.launch_counts()
@@ -103,8 +99,7 @@ class TestLowering:
         for g, w in zip(got, want):
             assert_assoc_close(g, w)
 
-    def test_solo_chains_and_sums(self, monkeypatch, kernels):
-        monkeypatch.setattr(X, "USE_ELL_KERNELS", kernels)
+    def test_solo_chains_and_sums(self):
         T, JT = tables(weighted=True)
         v, jv = seed_vecs(3)
         c0, j0 = X.launch_counts(), JX.launch_counts()
@@ -119,10 +114,8 @@ class TestLowering:
             assert_assoc_close(T.lazy().sum(axis).eval(),
                                JT.lazy().sum(axis).eval())
 
-    def test_kernel_path_matches_reference_pallas(self, monkeypatch,
-                                                  kernels):
+    def test_kernel_path_matches_reference_pallas(self, monkeypatch):
         """Against the reference's own kernel route (interpret mode)."""
-        monkeypatch.setattr(X, "USE_ELL_KERNELS", kernels)
         monkeypatch.setattr(JX, "USE_PALLAS_SPMV", True)
         T, JT = tables()
         vs = [seed_vecs(j) for j in range(3)]
@@ -132,8 +125,75 @@ class TestLowering:
             assert_assoc_close(g, w)
 
 
-def test_switch_defaults_on():
-    assert X.USE_ELL_KERNELS is True
+def matrix_tail(A):
+    """A two-column tail: its product is no matvec."""
+    return A(np.asarray(["v0003", "v0010", "v0010"]),
+             np.asarray(["m0", "m0", "m1"]), np.asarray([1.0, 2.0, 3.0]))
+
+
+# case -> (threshold: "table" for the table's nnz, members built from
+# (table, lazy, Assoc), launch delta, the top-level matmul routes)
+EDGES = {
+    # the factor holds the threshold, its part over the vector's keys
+    # does not: the two-part route tests the aligned part
+    "aligned_below_threshold": (
+        "table", lambda t, lz, A: [t.lazy() * lz(A(
+            np.asarray(["v0003", "v0010"]), np.asarray(["s", "s"]),
+            np.asarray([1.0, 2.0])))],
+        {"spmv": 0, "spmm": 0}, ["host"]),
+    # an empty vector: the chain falls back to pairwise host products
+    "empty_vector_chain": (
+        1, lambda t, lz, A: [t.lazy() * t.lazy() * lz(A(
+            np.asarray(["v0003"]), np.asarray(["s"]), np.asarray([0.0])))],
+        {"spmv": 0, "spmm": 0}, ["host"]),
+    # the last factor shares no key with the vector: it launches
+    # nothing, the first factor multiplies zeros
+    "disjoint_last_factor": (
+        1, lambda t, lz, A: [t.lazy() * t.lazy() * lz(A(
+            np.asarray(["w0001", "w0002"]), np.asarray(["s", "s"]),
+            np.asarray([1.0, 2.0])))],
+        {"spmv": 1, "spmm": 0}, ["chain"]),
+    # a non-vector tail in the batch: the vector members fuse into one
+    # spmm, the matrix member runs on its own on the host
+    "batch_with_matrix_tail": (
+        1, lambda t, lz, A: [t.lazy() * lz(A(
+            np.asarray([f"v{j:04d}", f"v{j + 7:04d}"]),
+            np.asarray([f"seed{j}"] * 2), np.asarray([1.0 + j, 2.0])))
+            for j in range(3)] + [t.lazy() * lz(matrix_tail(A))],
+        {"spmv": 0, "spmm": 1}, ["host"]),
+}
+
+
+@pytest.mark.parametrize("case", list(EDGES))
+def test_lowering_edges(case, monkeypatch):
+    """Where a product leaves the device path, or takes it with nothing
+    to multiply: answers, launch counts and routes against the JAX
+    package's."""
+    from repro_torch.obs import Tracer
+
+    threshold, build, launches, routes = EDGES[case]
+    if threshold == "table":
+        threshold = Assoc(*graph_triples()).nnz
+    monkeypatch.setattr(X, "DEVICE_NNZ_THRESHOLD", threshold)
+    monkeypatch.setattr(JX, "DEVICE_NNZ_THRESHOLD", threshold)
+    T, JT = tables()
+    members = build(T, lazy, Assoc)
+    jmembers = build(JT, jlazy, JAssoc)
+    c0, j0 = X.launch_counts(), JX.launch_counts()
+    tr = Tracer(max_spans=4096)
+    root = tr.start("q")
+    with root:
+        got = eval_batch(members)
+    want = jeval_batch(jmembers)
+    assert delta(c0, X.launch_counts()) == \
+        delta(j0, JX.launch_counts()) == launches
+    spans = tr.spans(root.trace_id)
+    (batch,) = [s for s in spans if s["name"] == "planner.eval_batch"]
+    assert [s["tags"]["route"] for s in spans
+            if s["name"] == "planner.exec.matmul"
+            and s["parent_id"] == batch["span_id"]] == routes
+    for g, w in zip(got, want):
+        assert_assoc_close(g, w)
 
 
 def test_planner_pushdown_and_cse_match():
