@@ -1163,7 +1163,9 @@ class ServeRecorder:
     kernel launches inside each (a dict by kernel); keep the arguments of
     the first call of each wrapper in ``wrappers`` (kernel name ->
     (module, attribute) where the model resolves it).  The wrapped
-    functions still run and count."""
+    functions still run and count.  While it records, every decode step
+    runs eagerly (``serve.capturable`` reads False), so that each step
+    calls the wrapper: a step replayed from a CUDA graph calls nothing."""
 
     def __init__(self, wrappers: dict):
         self.wrappers = wrappers
@@ -1203,8 +1205,10 @@ class ServeRecorder:
 
     def __enter__(self):
         self._orig = {"prefill": serve.prefill,
-                      "decode_step": serve.decode_step}
+                      "decode_step": serve.decode_step,
+                      "capturable": serve.capturable}
         serve.prefill, serve.decode_step = self._prefill, self._decode
+        serve.capturable = lambda *a: False
         for name, (mod, attr) in self.wrappers.items():
             self._orig[name] = getattr(mod, attr)
             setattr(mod, attr, self._spy(name, self._orig[name]))
@@ -1213,6 +1217,7 @@ class ServeRecorder:
     def __exit__(self, *exc):
         serve.prefill = self._orig["prefill"]
         serve.decode_step = self._orig["decode_step"]
+        serve.capturable = self._orig["capturable"]
         for name, (mod, attr) in self.wrappers.items():
             setattr(mod, attr, self._orig[name])
         return False
@@ -1298,9 +1303,13 @@ def make_model(arch: str, dev: torch.device, tag: str, **impls):
 def recorded_generate(cfg, params, wrappers: dict, tag: str,
                       prompt_bytes: int = SERVE_PROMPT_BYTES,
                       s_max: int = SERVE_S_MAX):
-    """One warm-up ``generate``, then the recorded one with the launch
-    counts zeroed just before and read just after; checks the shapes, the
-    logits and that decode launched no kernel.  Returns (recorder,
+    """One warm-up ``generate``, then the recorded one (every decode step
+    eager) and the served one (decode steps replayed from a CUDA graph
+    where ``serve.capturable`` holds), each with the launch counts zeroed
+    just before and read just after; checks the shapes, the logits, that
+    decode launched no kernel, and that the served run counts its decode
+    paths and gives the recorded run's launch counts and, where the
+    graph engaged, its text.  Returns (recorder, the served run's
     launches, times, device shares)."""
     prompts = serve_prompts(prompt_bytes)
     serve.generate(cfg, params, prompts, max_new=2, s_max=s_max)
@@ -1312,12 +1321,33 @@ def recorded_generate(cfg, params, wrappers: dict, tag: str,
                               s_max=s_max)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-    launches = ops.kernel_launches()
-    log(f"[{tag}] kernel launches {launches}, in prefill "
-        f"{rec.prefill_launches}")
+    eager_launches = ops.kernel_launches()
     check(len(rec.steps) == SERVE_NEW and
           all(not any(n.values()) for *_, n in rec.steps),
           f"[{tag}] decode launched a kernel")
+
+    fits = serve.capturable(cfg, rec.caches, params["embed"].device)
+    want = ({"captured": 1, "replayed": SERVE_NEW - 2, "eager": 1} if fits
+            else {"captured": 0, "replayed": 0, "eager": SERVE_NEW})
+    g0 = serve.decode_graph_counts()
+    ops.reset_launches()
+    served = serve.generate(cfg, params, prompts, max_new=SERVE_NEW,
+                            s_max=s_max)
+    launches = ops.kernel_launches()
+    g1 = serve.decode_graph_counts()
+    paths = {p: g1[p] - g0[p] for p in g1}
+    log(f"[{tag}] kernel launches {launches}, in prefill "
+        f"{rec.prefill_launches}; decode steps by path {paths}")
+    check(paths == want, f"[{tag}] decode paths {paths}, want {want}")
+    same = sum(a == b for a, b in zip(served, outs))
+    log(f"[{tag}] served text equals the eager loop's in {same} of "
+        f"{len(outs)} prompts")
+    # Unreplayed, both runs are the eager loop, and a bfloat16 MoE's
+    # combine (index_add atomics) may round in another order each run.
+    check(same == len(outs) or not fits,
+          f"[{tag}] replayed decode's text differs from the eager loop's")
+    check(launches == eager_launches, f"[{tag}] kernel launches served "
+          f"{launches}, eager loop {eager_launches}")
     b, s = rec.batch["tokens"].shape
     check((b, s) == (SERVE_BATCH, prompt_bytes + 1) and
           len(outs) == SERVE_BATCH, f"[{tag}] shapes {(b, s)}, {len(outs)}")

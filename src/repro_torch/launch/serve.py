@@ -25,7 +25,24 @@ from ..configs import get_config, smoke_config
 from ..data import tokenizer as T
 from ..device import get_device
 from ..models import decode_step, init_params, prefill
-from ..obs import span
+from ..models.blocks import (capturable, captured_experts,
+                              record_replayed_experts)
+from ..obs import REGISTRY, span
+
+# Every decode step of generate counts its path; /metrics shows the
+# counts as repro_decode_graph_total{path=...}.
+_GRAPH_FAMILY = REGISTRY.counter(
+    "repro_decode_graph_total", "Decode steps of generate by path: "
+    "captured into a CUDA graph, replayed from it, or run eagerly",
+    labels=("path",))
+_GRAPH = {p: _GRAPH_FAMILY.labels(path=p)
+          for p in ("captured", "replayed", "eager")}
+
+
+def decode_graph_counts() -> dict:
+    """Snapshot of the decode step counters by path (a copy, safe to
+    diff)."""
+    return {p: c.value for p, c in _GRAPH.items()}
 
 
 class Generated(NamedTuple):
@@ -33,6 +50,22 @@ class Generated(NamedTuple):
     tokens: torch.Tensor        # (B, max_new) int64 new token ids, host
     logits: list                # max_new + 1 float32 (B, V): the prompt's
                                 # last position, then each decode step's
+
+
+def _capture(params, caches, batch: dict, cfg):
+    """One decode step captured into a CUDA graph on a side stream
+    (capture runs nothing on the card).  Returns the graph, the logits
+    tensor that each replay overwrites, and the grouped-expert calls
+    that a traced replay tags (``models.blocks.captured_experts``)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(torch.cuda.Stream(batch["tokens"].device)), \
+            captured_experts() as experts:
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            logits, _ = decode_step(params, caches, batch, cfg)
+        finally:
+            graph.capture_end()
+    return graph, logits, experts
 
 
 def generate(cfg, params, prompts, max_new: int = 32,
@@ -46,7 +79,25 @@ def generate(cfg, params, prompts, max_new: int = 32,
     decoded strings (string prompts) or the (B, max_new) new ids (id
     prompts); with ``details`` a :class:`Generated`.  Spans
     ``model.prefill`` (``batch``, ``tokens``) and ``model.decode_step``
-    (``batch``) each end once the step's tokens are on the host."""
+    (``batch``) each end once the step's tokens are on the host.
+
+    Where ``models.blocks.capturable`` holds and ``max_new`` >= 2, the
+    first decode step runs eagerly
+    (the warm-up), the second is captured into a CUDA graph over the
+    call's own rings and every step from it on is a replay of that
+    graph: the host enqueues one launch a step.  The captured step reads
+    nothing back to the host and writes the rings in place
+    (``models.blocks``); its (B, 1) token and position inputs stay on
+    the device, refilled there before each replay; the graph is the
+    call's own, dropped when it returns.  Sampling stays outside the
+    graph; the logits a replay returns are overwritten by the next, so
+    ``details`` keeps copies.  In a traced call each replayed step
+    records its grouped-expert calls as ``moe.experts`` spans under its
+    ``model.decode_step`` (``models.blocks.record_replayed_experts``),
+    as an eager step opens them.  Each step counts its path in
+    ``repro_decode_graph_total{path="eager"|"captured"|"replayed"}``;
+    elsewhere (the CPU, recurrent caches, sharded or head-padded
+    models, one step) every step is eager."""
     dev = params["embed"].device
     if isinstance(prompts, torch.Tensor):
         batch = prompts.to(device=dev, dtype=torch.int32)
@@ -84,19 +135,40 @@ def generate(cfg, params, prompts, max_new: int = 32,
         last, nxt, host_ids = pick(logits)
     seen, out_tokens = [last], []
     pos = max_len + (cfg.n_img_tokens if cfg.frontend == "vision" else 0)
-    for _ in range(max_new):
+    capture_at = 1 if max_new >= 2 and capturable(cfg, caches, dev) \
+        else max_new
+    graph = None
+    for i in range(max_new):
         out_tokens.append(host_ids)
-        db = {"tokens": nxt[:, None].to(torch.int32),
-              "positions": torch.full((n, 1), pos, dtype=torch.int32,
-                                      device=dev)}
-        if enc_zeros is not None:
-            db["enc_out"] = enc_zeros   # a zero encoder output every step
         with span("model.decode_step", batch=n):
-            logits, caches = decode_step(params, caches, db, cfg)
+            if graph is None:
+                db = {"tokens": nxt[:, None].to(torch.int32),
+                      "positions": torch.full((n, 1), pos + i,
+                                              dtype=torch.int32, device=dev)}
+                if enc_zeros is not None:
+                    db["enc_out"] = enc_zeros   # a zero encoder output
+            else:       # the graph's inputs, refilled on the card
+                db["tokens"].copy_(nxt[:, None])
+                db["positions"].add_(1)
+            if i < capture_at:
+                logits, caches = decode_step(params, caches, db, cfg)
+                path = "eager"
+            else:
+                if graph is None:
+                    graph, logits, experts = _capture(params, caches, db,
+                                                      cfg)
+                    path = "captured"
+                else:
+                    path = "replayed"
+                wall0, t0 = time.time(), time.perf_counter()
+                graph.replay()
+            _GRAPH[path].inc()
             last, nxt, host_ids = pick(logits)
+            if graph is not None:
+                record_replayed_experts(experts, wall0,
+                                        time.perf_counter() - t0)
         if details:
-            seen.append(last)
-        pos += 1
+            seen.append(last if graph is None else last.clone())
     new = torch.tensor(out_tokens, dtype=torch.int64).reshape(max_new, n).T
     if details:
         return Generated(new, seen)

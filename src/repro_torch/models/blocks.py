@@ -22,11 +22,16 @@ encoder–decoder models, the encoder output and its positions.  Caches:
   token-shift states of the two mixes.
 
 Caches are updated out of place, as in JAX: a new cache is returned and
-the one passed in is left as it was.
+the one passed in is left as it was.  The one exception is a decode step
+captured into a CUDA graph (``launch.serve.generate``, where
+:func:`capturable` holds): there the attention rings are written in
+place (:func:`apply_attn`).
 """
 from __future__ import annotations
 
 import dataclasses
+from contextlib import contextmanager
+from contextvars import ContextVar
 from typing import NamedTuple, Optional, Union
 
 import torch
@@ -34,7 +39,7 @@ import torch.nn.functional as F
 
 from ..kernels.rglru import rglru_scan
 from ..kernels.wkv6 import wkv6
-from ..obs import REGISTRY, span
+from ..obs import REGISTRY, current_ctx, record, span
 from . import layers as L
 from .config import ATTN, LOCAL_ATTN, ModelConfig, MoEConfig, rope_for
 from .shard_ctx import (constrain, local_rows, merge_heads, rows_like,
@@ -185,11 +190,53 @@ def _is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
+def _capturing(t: torch.Tensor) -> bool:
+    """Whether ``t`` is on the card and the current stream is capturing
+    a CUDA graph (never on the CPU, whose build has no capture)."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+def capturable(cfg: ModelConfig, caches, device: torch.device) -> bool:
+    """Whether a decode step of ``cfg`` over ``caches`` can be captured
+    into a CUDA graph, i.e. reads nothing back to the host: the
+    parameters on a CUDA ``device``, every layer's cache an
+    ``AttnCache`` on plain tensors (no recurrent state, nothing
+    sharded), no head padding (its ``kv_map``), and a dropless MoE's
+    grouped products on torch's fast path, bfloat16 on an sm_90 card or
+    newer (its other path reads the experts' offsets back to the host).
+    A captured step writes the rings in place (:func:`apply_attn`)."""
+    if device.type != "cuda" or cfg.phys_heads != cfg.n_heads:
+        return False
+    if cfg.moe and cfg.moe.dropless and (
+            cfg.dtype != "bfloat16"
+            or torch.cuda.get_device_capability(device)[0] < 9):
+        return False
+    return all(isinstance(c, AttnCache) and not _is_dtensor(c.k)
+               for c in caches)
+
+
+def _write_ring_in_place(cache: AttnCache, k, v, positions):
+    """Decode's write under graph capture: the step's K, V and
+    positions into the rings themselves at slot ``positions % S_alloc``
+    of batch row 0 (as prefill takes its slots), computed on the card.
+    The rings keep their addresses and no host int enters the slot, so
+    every replay writes where its position says.  For the one position
+    a step that decode writes it is the out-of-place write's slot."""
+    slots = positions[0].long() % cache.k.shape[1]
+    cache.k.index_copy_(1, slots, k)
+    cache.v.index_copy_(1, slots, v)
+    cache.pos.index_copy_(1, slots, positions.to(torch.int32))
+    return cache.k, cache.v, cache.pos
+
+
 def apply_attn(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig,
                window: int = 0):
     """Self-attention sublayer (pre-norm). Returns (residual_out, cache).
 
-    Decode writes the step's K/V at ring slot ``index % S_alloc`` and
+    Decode writes the step's K/V at ring slot ``index % S_alloc`` (into
+    copies of the rings; while a CUDA graph captures, into the rings
+    themselves at the slot of the step's position, computed on the card:
+    :func:`_write_ring_in_place`) and
     attends over the ring by the slots' absolute positions: grouped by
     KV head over the rings as they are (``layers.attention_decode``), or,
     on sharded (DTensor) rings and head-padded archs (``kv_map``), naively
@@ -220,7 +267,10 @@ def apply_attn(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig,
             vc[:, slot:slot + S] = v
             pos[:, slot:slot + S] = positions.to(torch.int32)
             return kc, vc, pos
-        kc, vc, pos = _write_cache(write, cache, k, v, ctx.positions)
+        if _capturing(cache.k):
+            kc, vc, pos = _write_ring_in_place(cache, k, v, ctx.positions)
+        else:
+            kc, vc, pos = _write_cache(write, cache, k, v, ctx.positions)
         new_cache = AttnCache(kc, vc, pos, cache.index + S)
         # ring entries carry absolute positions; -1 slots stay masked
         if kv_map is None and not _is_dtensor(q) and not _is_dtensor(kc):
@@ -420,6 +470,52 @@ def _count_pairs(counts: list) -> int:
     return sum(1 for n in counts if n)
 
 
+def expert_rows(expert: torch.Tensor, n_experts: int):
+    """The (token, expert) pairs an expert, ``torch.bincount(expert,
+    minlength=n_experts)``, and their int32 running sums, the ends of
+    the experts' runs once sorted, counted on ``expert``'s device by a
+    ``scatter_add_`` of ones: no read to the host (CUDA's ``bincount``
+    reads the ids' min and max back)."""
+    counts = expert.new_zeros(n_experts).scatter_add_(
+        0, expert, torch.ones_like(expert))
+    return counts, torch.cumsum(counts, 0).to(torch.int32)
+
+
+# While a traced decode step is captured (:func:`captured_experts`), the
+# (rows, experts that got rows) of each grouped-expert call, the second
+# a 0-d tensor on the card that every replay of the graph rewrites.
+_CAPTURED_EXPERTS: ContextVar = ContextVar("captured_experts",
+                                           default=None)
+
+
+@contextmanager
+def captured_experts():
+    """Collect, while a traced decode step is captured into a CUDA
+    graph, each :func:`apply_moe_grouped` call's ``rows`` and its
+    experts that got rows, counted on the card into a buffer of the
+    graph; yields the list (empty in an untraced capture)."""
+    calls: list = []
+    token = _CAPTURED_EXPERTS.set(calls)
+    try:
+        yield calls
+    finally:
+        _CAPTURED_EXPERTS.reset(token)
+
+
+def record_replayed_experts(calls: list, wall0: float, dur: float) -> None:
+    """After a replay of a captured step, one ``moe.experts`` span a
+    call of ``calls`` (from :func:`captured_experts`) under the current
+    span, tagged as a traced eager call tags it (``rows``,
+    ``experts_hit`` read from the graph's buffers in one read to the
+    host), over the replay's extent ``wall0`` + ``dur``."""
+    if not calls:
+        return
+    hits = torch.stack([h for _, h in calls]).tolist()
+    ctx = current_ctx()
+    for (rows, _), hit in zip(calls, hits):
+        record(ctx, "moe.experts", wall0, dur, rows=rows, experts_hit=hit)
+
+
 def apply_moe_grouped(p: dict, x: torch.Tensor,
                       cfg: ModelConfig) -> torch.Tensor:
     """Dropless token-choice MoE: every token's top-k experts, the gates
@@ -434,9 +530,15 @@ def apply_moe_grouped(p: dict, x: torch.Tensor,
     in float32 and rounds once, in a fixed order (an ``index_add`` in
     the compute dtype rounds at every add, in the order of its atomics).
     Routing and the combine run on the whole batch at once: plain
-    tensors, one card.  Spans ``moe.route`` and ``moe.experts`` (tags
-    ``rows``, ``experts_hit``); in a traced call the pairs an expert
-    read back to the host and counted in ``repro_moe_pairs_total``."""
+    tensors, one card.  The rows an expert and their ends are counted
+    on the card (:func:`expert_rows`), with no read to the host, so a
+    decode step can be captured into a CUDA graph
+    (``launch.serve.generate``).  Spans ``moe.route`` and ``moe.experts``
+    (tags ``rows``, ``experts_hit``); in a traced call run eagerly the
+    pairs an expert are read back to the host and counted in
+    ``repro_moe_pairs_total``; while a graph captures, ``experts_hit``
+    is None, nothing is counted, and the experts that got rows are
+    counted on the card for :func:`record_replayed_experts`."""
     m = cfg.moe
     B, S, D = x.shape
     T, k = B * S, m.top_k
@@ -447,9 +549,12 @@ def apply_moe_grouped(p: dict, x: torch.Tensor,
         gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
         flat = expert.reshape(-1)                             # (T·k,)
         order = torch.argsort(flat, stable=True)
-        counts = torch.bincount(flat, minlength=m.n_experts)
-        ends = torch.cumsum(counts, 0).to(torch.int32)
-        hit = _count_pairs(counts.tolist()) if sp.live else None
+        counts, ends = expert_rows(flat, m.n_experts)
+        hit = None
+        if sp.live and not _capturing(counts):
+            hit = _count_pairs(counts.tolist())
+        elif sp.live and (calls := _CAPTURED_EXPERTS.get()) is not None:
+            calls.append((T * k, (counts > 0).sum()))
         sp.tag(experts_hit=hit)
     with span("moe.experts", rows=T * k, experts_hit=hit):
         xs = h.index_select(0, order // k)                    # by expert

@@ -84,15 +84,29 @@ per-layer metrics live in ``bench/metrics/``):
   (``batch``): ``launch.serve.generate``'s prompt pass and each decode
   step, each ending once the step's tokens are on the host;
   ``model.prefill_ms``, ``model.decode_step_ms``, and the steps the
-  roofline readers attribute kernels to.  Within a step each attention
+  roofline readers attribute kernels to.  Each decode step counts its
+  path in ``repro_decode_graph_total{path}`` (``eager``, ``captured``
+  into a CUDA graph, ``replayed`` from it; ``launch.serve.generate``,
+  traced or not; ``models.blocks.capturable`` says where the graph
+  engages); a replayed step runs none of the model's Python, so it
+  opens no span of its own below ``model.decode_step`` and counts
+  nothing else, but a traced one records there its ``moe.experts``
+  calls (below).  Within a step run eagerly or captured, each attention
   layer counts its route over the K/V rings in
   ``repro_attn_decode_total{path}`` (``grouped``/``expanded``,
-  ``models.blocks.apply_attn``, traced or not); no metric reads it.
+  ``models.blocks.apply_attn``, traced or not).  No metric reads either
+  counter.
 * ``moe.route`` (``rows``, ``experts_hit``), ``moe.experts`` (``rows``,
   ``experts_hit``): the dropless expert layer's routing and grouped
-  products (``models.blocks.apply_moe_grouped``; a traced call reads the
-  pairs an expert back to the host for ``experts_hit`` and
-  ``repro_moe_pairs_total{expert}``); ``moe.grouped_roofline``.
+  products (``models.blocks.apply_moe_grouped``; a traced call run
+  eagerly reads the pairs an expert back to the host for
+  ``experts_hit`` and ``repro_moe_pairs_total{expert}``; a captured one
+  tags ``experts_hit`` None, counts nothing, and keeps its count of
+  experts with rows on the card, from which each replay of a traced
+  step records one ``moe.experts`` span a call with ``rows`` and
+  ``experts_hit``, over the replay's extent,
+  ``models.blocks.record_replayed_experts``); ``moe.grouped_roofline``,
+  over prefill and every decode step, replayed ones too.
 """
 from __future__ import annotations
 

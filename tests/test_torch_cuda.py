@@ -22,7 +22,9 @@ segsum, float atomics add in an order that changes from run to run) and
 exact equality for integer counts (below 2^24, every order gives the same
 float); for spgemm_sel exact
 equality where each (row, j) has at most one stored hit, else rtol=atol=
-1e-6 (another summation order).
+1e-6 (another summation order); none for ``generate`` with its decode
+steps replayed from a CUDA graph against the eager loop, which runs the
+same kernels on the same values.
 """
 import dataclasses
 import importlib
@@ -41,6 +43,7 @@ from repro_torch.kernels import flash_attention, flash_attention_ref, ops, \
     spgemm_sel, spgemm_sel_ref, spmm_ell, spmm_ell_ref, spmv_ell, \
     spmv_ell_ref, wkv6, wkv6_ref
 from repro_torch.kernels import spmm as kspmm
+from repro_torch.launch import serve
 from repro_torch.models import blocks, init_params, layers, model, prefill
 
 # the module (the package namespace's ``segsum`` is the function)
@@ -508,6 +511,145 @@ def test_moe_prefill_on_card_matches_cpu(card, arch):
         experts(params, toks)
     assert torch.equal(e_card, e_cpu) and torch.equal(k_card, k_cpu)
     assert bool(k_cpu.all())
+
+
+# ---------------------------------------------------------------------------
+# decode steps replayed from a CUDA graph (launch.serve.generate)
+# ---------------------------------------------------------------------------
+
+def served(cfg, dev, new: int, prompt: int = 32, seed: int = 0):
+    """``generate`` over two id prompts of ``prompt`` tokens with
+    ``details``, and the decode steps it counted by path."""
+    params = to_device(init_params(cfg, torch.Generator().manual_seed(seed)),
+                       dev)
+    ids = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (2, prompt)))
+    before = serve.decode_graph_counts()
+    out = serve.generate(cfg, params, ids, max_new=new, s_max=prompt + new,
+                         details=True)
+    after = serve.decode_graph_counts()
+    return out, {p: after[p] - before[p] for p in after}
+
+
+def assert_same_generation(got, want):
+    assert torch.equal(got.tokens, want.tokens)
+    assert len(got.logits) == len(want.logits)
+    for g, w in zip(got.logits, want.logits):
+        assert torch.equal(g, w)
+
+
+def test_decode_graph_equals_eager_loop(card, monkeypatch):
+    """Smoke Mellum2 in bfloat16 (its window of 16 slots wraps three
+    times over 32 prompt and 24 new tokens): with the decode steps
+    replayed from a CUDA graph, the eager loop's tokens and every step's
+    logits bit for bit (a logits row kept without a copy would read as
+    the last step's); 1 step eager, 1 captured, the rest replayed."""
+    cfg = dataclasses.replace(smoke_config("mellum2-12b-a2.5b"),
+                              dtype="bfloat16")
+    new = 24
+    got, counts = served(cfg, card, new)
+    assert counts == {"eager": 1, "captured": 1, "replayed": new - 2}
+    monkeypatch.setattr(serve, "capturable", lambda *a: False)
+    want, counts = served(cfg, card, new)
+    assert counts == {"eager": new, "captured": 0, "replayed": 0}
+    assert_same_generation(got, want)
+    assert not torch.equal(got.logits[-1], got.logits[-2])
+
+
+def test_replayed_steps_tag_their_grouped_experts(card, monkeypatch):
+    """Traced, every decode step of smoke Mellum2 in bfloat16 holds one
+    ``moe.experts`` span a MoE layer with ``experts_hit`` set, replayed
+    steps too (read from the graph's buffers after the replay), and the
+    counts equal the eager loop's, step by step."""
+    from repro_torch.obs import Tracer
+    cfg = dataclasses.replace(smoke_config("mellum2-12b-a2.5b"),
+                              dtype="bfloat16")
+    n_moe = cfg.n_layers              # every layer's MLP is the MoE
+
+    def hits():
+        tracer = Tracer(max_spans=100_000)
+        root = tracer.start("call")
+        with root:
+            served(cfg, card, 12)
+        spans = tracer.spans(root.trace_id)
+        steps = [s["span_id"] for s in spans
+                 if s["name"] == "model.decode_step"]
+        tags = {sid: [] for sid in steps}
+        for s in spans:
+            if s["name"] == "moe.experts" and s["parent_id"] in tags and \
+                    s["tags"]["experts_hit"] is not None:
+                tags[s["parent_id"]].append(
+                    (s["tags"]["rows"], s["tags"]["experts_hit"]))
+        return [sorted(tags[sid]) for sid in sorted(steps)]
+
+    got = hits()
+    monkeypatch.setattr(serve, "capturable", lambda *a: False)
+    want = hits()
+    assert len(got) == len(want) == 12
+    assert all(len(step) == n_moe for step in want)
+    assert got == want
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "qwen2.5-14b",
+                                  "granite-moe-3b-a800m",
+                                  "whisper-large-v3", "phi-3-vision-4.2b"])
+def test_decode_graph_equals_eager_loop_by_family(card, monkeypatch, arch):
+    """Every family whose caches are all attention rings replays its
+    decode steps from a graph (sliding rings, capacity MoE, cross
+    attention over zero frames, an image prefix), with the eager loop's
+    tokens and logits, float32 bit for bit."""
+    cfg = smoke_config(arch)
+    got, counts = served(cfg, card, 10)
+    assert counts == {"eager": 1, "captured": 1, "replayed": 8}
+    monkeypatch.setattr(serve, "capturable", lambda *a: False)
+    want, _ = served(cfg, card, 10)
+    assert_same_generation(got, want)
+
+
+@pytest.mark.parametrize("arch,dtype", [("rwkv6-1.6b", "float32"),
+                                        ("recurrentgemma-9b", "float32"),
+                                        ("mellum2-12b-a2.5b", "float32")])
+def test_decode_stays_eager_where_no_graph_fits(card, arch, dtype):
+    """Recurrent caches, and a dropless MoE outside bfloat16 (torch's
+    grouped products then read their offsets back), decode eagerly at
+    every step."""
+    cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
+    _, counts = served(cfg, card, 6)
+    assert counts == {"eager": 6, "captured": 0, "replayed": 0}
+
+
+def test_mellum2_decode_step_captures(card):
+    """A smoke Mellum2 decode step in bfloat16 captured under
+    ``torch.cuda.graph`` raises nothing (no bincount, no read to the
+    host, no ring copy inside), writes the rings in place, and its
+    replay gives an eager step's logits and rings from the same state."""
+    cfg = dataclasses.replace(smoke_config("mellum2-12b-a2.5b"),
+                              dtype="bfloat16")
+    params = to_device(init_params(cfg, torch.Generator().manual_seed(3)),
+                       card)
+    S = 40
+    ids = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, S)).astype(np.int32)).to(card)
+    _, caches = prefill(params, {"tokens": ids}, cfg, s_max=S + 8)
+    db = {"tokens": ids[:, -1:].clone(),
+          "positions": torch.full((2, 1), S, dtype=torch.int32,
+                                  device=card)}
+    _, caches = model.decode_step(params, caches, db, cfg)   # warm-up
+    db["positions"].add_(1)
+    rings = [c.k.data_ptr() for c in caches]
+    ref_caches = [blocks.AttnCache(c.k.clone(), c.v.clone(), c.pos.clone(),
+                                   c.index) for c in caches]
+    want, want_caches = model.decode_step(params, ref_caches, db, cfg)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, new_caches = model.decode_step(params, caches, db, cfg)
+    assert [c.k.data_ptr() for c in new_caches] == rings
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(logits, want)
+    for got, ref in zip(caches, want_caches):
+        for g, w in zip(got[:3], ref[:3]):
+            assert torch.equal(g, w)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ benchmark's plain reference ``bench/reference/mellum2.py``, which reads
 the published tensors; YaRN's frequencies against the formula written
 out; each attention layer kind's rope; the dropless grouped MoE against
 the reference when one expert takes every token; granite-moe's capacity
-path unchanged."""
+path unchanged; the experts' rows counted with no host read against
+``bincount``; the in-place ring write a captured CUDA graph replays
+against the out-of-place one; every decode step eager on the CPU."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,6 +27,7 @@ from repro_torch.models import init_params, params_from_published
 from repro_torch.models import layers as PL
 from repro_torch.models.config import RopeConfig, rope_for
 from repro_torch.obs import REGISTRY, Tracer
+from repro_torch.obs import span as tracer_span
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from bench.reference import mellum2 as ref  # noqa: E402
@@ -334,3 +337,139 @@ def test_granite_moe_smoke_outputs_unchanged():
                                                    rel=1e-6)
     torch.testing.assert_close(got[:, 0, :3], torch.tensor(GRANITE_FIRST),
                                rtol=1e-5, atol=1e-6)
+
+
+def _routing(case: str, n_experts: int, pairs: int) -> torch.Tensor:
+    g = torch.Generator().manual_seed(pairs)
+    if case == "uniform":
+        return torch.randint(0, n_experts, (pairs,), generator=g)
+    if case == "some_empty":        # only the even experts get rows
+        return 2 * torch.randint(0, n_experts // 2, (pairs,), generator=g)
+    if case == "one_expert":        # every pair on the last expert
+        return torch.full((pairs,), n_experts - 1, dtype=torch.int64)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case,n_experts,pairs", [
+    ("uniform", 64, 64), ("uniform", 8, 4096), ("some_empty", 64, 64),
+    ("some_empty", 16, 300), ("one_expert", 64, 64), ("one_expert", 4, 7)])
+def test_expert_rows_equal_bincount(case, n_experts, pairs):
+    """The grouped MoE's rows an expert and the ends of their runs,
+    counted with no host read, are the integers ``torch.bincount`` and
+    its running sum give, experts with no rows included."""
+    flat = _routing(case, n_experts, pairs)
+    counts, ends = PB.expert_rows(flat, n_experts)
+    want = torch.bincount(flat, minlength=n_experts)
+    assert counts.dtype == want.dtype and torch.equal(counts, want)
+    assert ends.dtype == torch.int32
+    assert torch.equal(ends, torch.cumsum(want, 0).to(torch.int32))
+    assert int(ends[-1]) == pairs
+    if case != "uniform":
+        assert int((counts == 0).sum()) >= n_experts // 2
+
+
+def _decode_through_rings(cfg, params, ids, new: int):
+    """Prefill ``ids``, then ``new`` greedy decode steps; each step's
+    logits and (k, v, pos) of every ring after it."""
+    from repro_torch.models import decode_step, prefill
+    B, S = ids.shape
+    logits, caches = prefill(params, {"tokens": ids.to(torch.int32)}, cfg,
+                             s_max=S + new)
+    nxt = logits[:, -1].argmax(-1)
+    steps = []
+    for s in range(new):
+        logits, caches = decode_step(params, caches, {
+            "tokens": nxt[:, None].to(torch.int32),
+            "positions": torch.full((B, 1), S + s, dtype=torch.int32)}, cfg)
+        nxt = logits[:, -1].argmax(-1)
+        steps.append((logits.clone(), [(c.k.clone(), c.v.clone(),
+                                        c.pos.clone()) for c in caches]))
+    return steps
+
+
+@pytest.mark.parametrize("window,prompt,new", [(16, 40, 12),
+                                               (1024, 1016, 12)])
+def test_in_place_ring_write_equals_cloned_write(monkeypatch, window,
+                                                 prompt, new):
+    """Decode with the rings written in place at ``positions % S_alloc``
+    (the write a captured CUDA graph replays) leaves every ring, its
+    slot positions and the logits equal to the out-of-place write at
+    ``index % S_alloc``, step by step: the full rings and the sliding
+    ones, which wrap (16 slots past their second wrap; 1,024 slots
+    wrapping at the ninth step)."""
+    cfg = dataclasses.replace(smoke_config(ARCH), window=window)
+    params = init_params(cfg, torch.Generator().manual_seed(12))
+    ids = torch.randint(0, cfg.vocab, (2, prompt),
+                        generator=torch.Generator().manual_seed(13))
+    want = _decode_through_rings(cfg, params, ids, new)
+    writes = []
+    in_place = PB._write_ring_in_place
+
+    def spy(cache, k, v, positions):
+        writes.append(cache.k.shape[1])
+        out = in_place(cache, k, v, positions)
+        assert out[0] is cache.k and out[2] is cache.pos
+        return out
+    monkeypatch.setattr(PB, "_capturing", lambda t: True)
+    monkeypatch.setattr(PB, "_write_ring_in_place", spy)
+    got = _decode_through_rings(cfg, params, ids, new)
+    kinds = cfg.layer_types()
+    assert writes == [window if t == "L" else prompt + new
+                      for t in kinds] * new
+    for (gl, grings), (wl, wrings) in zip(got, want):
+        assert torch.equal(gl, wl)
+        for gr, wr in zip(grings, wrings):
+            for g, w in zip(gr, wr):
+                assert torch.equal(g, w)
+    # the sliding rings wrapped during decode, the full ones did not
+    last = dict(zip(kinds, got[-1][1]))
+    assert int(last["L"][2].max()) == prompt + new - 1
+    assert int(last["L"][2].min()) == prompt + new - window
+    assert int(last["A"][2].min()) == 0
+
+
+def test_generate_counts_every_step_eager_on_the_cpu():
+    """No CUDA graph on the CPU: every decode step counts ``eager``."""
+    from repro_torch.launch.serve import decode_graph_counts
+    cfg = smoke_config(ARCH)
+    params = init_params(cfg, torch.Generator().manual_seed(14))
+    before = decode_graph_counts()
+    generate(cfg, params, torch.zeros((2, 24), dtype=torch.int64),
+             max_new=5, s_max=32)
+    after = decode_graph_counts()
+    assert {p: after[p] - before[p] for p in after} == \
+        {"captured": 0, "replayed": 0, "eager": 5}
+
+
+def test_replayed_experts_recorded_under_the_step():
+    """On the CPU nothing captures: ``capturable`` is False, a traced
+    call inside ``captured_experts`` tags its count on the host and
+    collects nothing; ``record_replayed_experts`` records one
+    ``moe.experts`` span a collected call under the current span, with
+    the card-side counts read back, and nothing when untraced."""
+    cfg = smoke_config(ARCH)
+    params = init_params(cfg, torch.Generator().manual_seed(15))
+    caches = [PB.AttnCache(torch.zeros(1), torch.zeros(1), torch.zeros(1), 0)]
+    assert not PB.capturable(cfg, caches, torch.device("cpu"))
+    x = torch.rand((2, 8, cfg.d_model), generator=torch.Generator()
+                   .manual_seed(16))
+    tracer = Tracer()
+    root = tracer.start("call")
+    with root, PB.captured_experts() as calls:
+        PB.apply_moe(params["layers"][0]["mlp"], x, cfg)
+    assert calls == []
+    (moe,) = [s for s in tracer.spans(root.trace_id)
+              if s["name"] == "moe.experts"]
+    assert moe["tags"]["experts_hit"] >= 1
+    calls = [(16, torch.tensor(3)), (16, torch.tensor(4))]
+    PB.record_replayed_experts(calls, 0.0, 1e-3)   # untraced: a no-op
+    root = tracer.start("call")
+    with root, tracer_span("model.decode_step"):
+        PB.record_replayed_experts(calls, 0.0, 1e-3)
+    spans = tracer.spans(root.trace_id)
+    (step,) = [s["span_id"] for s in spans
+               if s["name"] == "model.decode_step"]
+    got = [(s["parent_id"], s["tags"]) for s in spans
+           if s["name"] == "moe.experts"]
+    assert got == [(step, {"rows": 16, "experts_hit": 3}),
+                   (step, {"rows": 16, "experts_hit": 4})]
