@@ -63,7 +63,14 @@ Phases, each of which must pass (any failure raises, exit code != 0):
    same, where the window cuts; (2, 512, 16, 128) with 4 kv heads in
    float32, causal; phi-3-vision's prefill shape (8, 1024, 32, 96), one
    kv head a query head (each block one head), bf16, causal, its head
-   dim padded to 128 in shared memory.  bf16 within rtol=atol=2e-2 of the plain version on
+   dim padded to 128 in shared memory; deepseek-v2-lite's prefill
+   (decompressed latent attention) at (4, 2048, 16, 192) and at the
+   cell's length (1, 16384, 16, 192), 16 kv heads, bf16, causal: q/k
+   heads of 192, v of 128 zero-padded to 192 (the kernel pads both to
+   256 in shared memory), DeepSeek's softmax scale 192^-0.5 m^2, and
+   the output's padded columns exactly zero (batch 1 at 16,384: the
+   plain version's float32 scores, B H S^2 of them, fit the card).
+   bf16 within rtol=atol=2e-2 of the plain version on
    the same inputs (which rounds its softmax weights to bf16 before the
    product: up to 2^-9 of |v| per weight, plus half an output ulp each)
    and within rtol=atol=1e-2 of the plain version on the same values in
@@ -234,8 +241,14 @@ Phases, each of which must pass (any failure raises, exit code != 0):
     prefill; then seeded normal image embeddings through the kernel path
     and the plain path (chunked, naive at S = 1024) over the generated
     tokens: prefill and all 32 decode steps' logits within 0.1; the
-    kernel measured on layer 0's inputs.  (d) qwen3-moe-235b-a22b's full
-    parameter tree counted on ``meta`` (235,094,659,072).  (e) Every
+    kernel measured on layer 0's inputs.  (d) deepseek-v2-lite
+    (15,706,484,224, bfloat16): the 8 prompts with 64 new tokens, one
+    ``flash_attention`` launch a layer, all in prefill; decode replayed
+    from one CUDA graph a call (1 eager / 1 captured / 62 replayed), its
+    text equal to the eager loop's and its launches the same; a second
+    served call counting 2 latent decode attention calls a layer.  (e)
+    qwen3-moe-235b-a22b's full parameter tree counted on ``meta``
+    (235,094,659,072).  (f) Every
     family's smoke config (float32, ``attention_impl="pallas"``) on the
     card and on the CPU from the same seeded parameters and batch
     (normal frames and image embeddings, 32 prefill positions): prefill
@@ -380,11 +393,21 @@ RGLRU_REPLACES = "src/repro/kernels/rglru.py:51"
 RGLRU_SHAPES = [(8, 512, 4096), (1, 8192, 4096)]
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:72"
-# (B, S, H, KV, Dh, dtype, causal, window)
-FLASH_CASES = [(8, 512, 16, 1, 256, torch.bfloat16, True, 2048),
-               (1, 4096, 16, 1, 256, torch.bfloat16, True, 2048),
-               (2, 512, 16, 4, 128, torch.float32, True, 0),
-               (8, 1024, 32, 32, 96, torch.bfloat16, True, 0)]
+MLA_ARCH = "deepseek-v2-lite"
+_MLA = get_config(MLA_ARCH)
+# DeepSeek's YaRN softmax scale: (qk_nope + qk_rope)^-0.5 m(mscale_all_dim)^2
+MLA_SCALE = _MLA.qk_head_dim ** -0.5 * _MLA.rope_global.softmax_factor
+# (B, S, H, KV, Dh, Dv, dtype, causal, window, scale): v is Dv wide,
+# zero-padded to Dh past Dv (MLA's decompressed form); scale None is
+# Dh^-0.5
+FLASH_CASES = [(8, 512, 16, 1, 256, 256, torch.bfloat16, True, 2048, None),
+               (1, 4096, 16, 1, 256, 256, torch.bfloat16, True, 2048, None),
+               (2, 512, 16, 4, 128, 128, torch.float32, True, 0, None),
+               (8, 1024, 32, 32, 96, 96, torch.bfloat16, True, 0, None),
+               (4, 2048, 16, 16, _MLA.qk_head_dim, _MLA.v_head_dim,
+                torch.bfloat16, True, 0, MLA_SCALE),
+               (1, 16384, 16, 16, _MLA.qk_head_dim, _MLA.v_head_dim,
+                torch.bfloat16, True, 0, MLA_SCALE)]
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # rtol = atol
 FLASH_F32_TOL = 1e-2          # bf16 output against float32 arithmetic
 # bf16: relative Frobenius error against float32 arithmetic in each of
@@ -396,7 +419,9 @@ MOE_ARCH, ENCDEC_ARCH, VISION_ARCH, QWEN_MOE_ARCH = \
     "qwen3-moe-235b-a22b"
 # parameter entries of each full config (the JAX package's tree)
 FAMILY_PARAMS = {MOE_ARCH: 3_349_513_728, ENCDEC_ARCH: 2_398_169_600,
-                 VISION_ARCH: 3_831_696_384, QWEN_MOE_ARCH: 235_094_659_072}
+                 VISION_ARCH: 3_831_696_384, QWEN_MOE_ARCH: 235_094_659_072,
+                 MLA_ARCH: 15_706_484_224}
+MLA_NEW = 64            # deepseek-v2-lite's new tokens a served call
 # S = 447 + BOS + 576 image tokens = 1024, where the kernel's
 # precondition holds; s_max leaves room for the 32 decode steps
 VISION_PROMPT_BYTES, VISION_S_MAX = 447, 1056
@@ -1284,12 +1309,17 @@ def logit_err(cfg, got: torch.Tensor, want: torch.Tensor) -> float:
     return rel_err(got[..., :cfg.vocab], want[..., :cfg.vocab])
 
 
-def make_model(arch: str, dev: torch.device, tag: str, **impls):
+def make_model(arch: str, dev: torch.device, tag: str,
+               param_dtype: torch.dtype = None, **impls):
     """The full-width config of ``arch`` with ``impls`` and its seeded
-    random parameters on the card."""
+    random parameters on the card, each layer cast to ``param_dtype``
+    (if given) as it is made."""
     cfg = dataclasses.replace(get_config(arch), **impls)
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    place = None if param_dtype is None else \
+        (lambda path, sub: tree_map(lambda t: t.to(param_dtype), sub))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         place=place)
     torch.cuda.synchronize()
     log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers "
         f"{''.join(cfg.layer_types())}, d_model {cfg.d_model}, "
@@ -1302,8 +1332,9 @@ def make_model(arch: str, dev: torch.device, tag: str, **impls):
 
 def recorded_generate(cfg, params, wrappers: dict, tag: str,
                       prompt_bytes: int = SERVE_PROMPT_BYTES,
-                      s_max: int = SERVE_S_MAX):
-    """One warm-up ``generate``, then the recorded one (every decode step
+                      s_max: int = SERVE_S_MAX, new: int = SERVE_NEW):
+    """One warm-up ``generate``, then the recorded one (``new`` decode
+    steps, every one
     eager) and the served one (decode steps replayed from a CUDA graph
     where ``serve.capturable`` holds), each with the launch counts zeroed
     just before and read just after; checks the shapes, the logits, that
@@ -1317,21 +1348,21 @@ def recorded_generate(cfg, params, wrappers: dict, tag: str,
     ops.reset_launches()
     with ServeRecorder(wrappers) as rec:
         t0 = time.perf_counter()
-        outs = serve.generate(cfg, params, prompts, max_new=SERVE_NEW,
+        outs = serve.generate(cfg, params, prompts, max_new=new,
                               s_max=s_max)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
     eager_launches = ops.kernel_launches()
-    check(len(rec.steps) == SERVE_NEW and
+    check(len(rec.steps) == new and
           all(not any(n.values()) for *_, n in rec.steps),
           f"[{tag}] decode launched a kernel")
 
     fits = serve.capturable(cfg, rec.caches, params["embed"].device)
-    want = ({"captured": 1, "replayed": SERVE_NEW - 2, "eager": 1} if fits
-            else {"captured": 0, "replayed": 0, "eager": SERVE_NEW})
+    want = ({"captured": 1, "replayed": new - 2, "eager": 1} if fits
+            else {"captured": 0, "replayed": 0, "eager": new})
     g0 = serve.decode_graph_counts()
     ops.reset_launches()
-    served = serve.generate(cfg, params, prompts, max_new=SERVE_NEW,
+    served = serve.generate(cfg, params, prompts, max_new=new,
                             s_max=s_max)
     launches = ops.kernel_launches()
     g1 = serve.decode_graph_counts()
@@ -1362,11 +1393,11 @@ def recorded_generate(cfg, params, wrappers: dict, tag: str,
              "decode_ms_per_step": decode_ms,
              "decode_tok_per_s": b / decode_ms * 1e3,
              "generate_s": total_s,
-             "generate_tok_per_s": b * SERVE_NEW / total_s}
+             "generate_tok_per_s": b * new / total_s}
     log(f"[{tag}] prefill {b}x{s} tokens: {rec.prefill_s:.4f} s "
         f"({times['prefill_tok_per_s']:.0f} tok/s); decode "
         f"{decode_ms:.3f} ms per step of {b} tokens "
-        f"({times['decode_tok_per_s']:.1f} tok/s); generate {b}x{SERVE_NEW}"
+        f"({times['decode_tok_per_s']:.1f} tok/s); generate {b}x{new}"
         f" new tokens in {total_s:.3f} s "
         f"({times['generate_tok_per_s']:.1f} tok/s)")
 
@@ -1500,11 +1531,12 @@ def rglru_at_shapes(dev: torch.device) -> list:
 # ---------------------------------------------------------------------------
 
 def flash_inputs(case, dev, seed: int = 0):
-    b, s, h, kv, dh, dtype, _, _ = case
+    b, s, h, kv, dh, dv, dtype, *_ = case
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, s, h, dh), generator=g, device=dev)
-    k, v = (torch.randn((b, s, kv, dh), generator=g, device=dev)
-            for _ in range(2))
+    k = torch.randn((b, s, kv, dh), generator=g, device=dev)
+    v = torch.nn.functional.pad(
+        torch.randn((b, s, kv, dv), generator=g, device=dev), (0, dh - dv))
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
@@ -1527,16 +1559,17 @@ def flash_bound(q, k, causal: bool, window: int) -> tuple[float, str]:
                     else FP32_FLOPS)
 
 
-def sdpa_call(q, k, v):
+def sdpa_call(q, k, v, scale: float = None):
     """The library yardstick: one ``scaled_dot_product_attention`` call,
-    causal, on the same values with k and v expanded to q's heads, in
-    its (B, H, S, Dh) layout (prepared outside the timed call)."""
+    causal, at ``scale`` (None: Dh^-0.5), on the same values with k and
+    v expanded to q's heads, in its (B, H, S, Dh) layout (prepared
+    outside the timed call)."""
     g = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(g, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(g, dim=2).transpose(1, 2)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True)
+        qt, kt, vt, is_causal=True, scale=scale)
 
 
 def band_rel_errs(got: torch.Tensor, want: torch.Tensor) -> list:
@@ -1552,27 +1585,35 @@ def band_rel_errs(got: torch.Tensor, want: torch.Tensor) -> list:
 
 
 def measure_flash(q, k, v, causal: bool = True, window: int = 0,
+                  scale: float = None, dv: int = None,
                   plain_iters: int = 5) -> dict:
     """Kernel against its plain version on the same inputs (and, for
     bf16, on the same values in float32), then kernel, plain version and
-    (where it computes the same function) the library call timed."""
-    got = flash_attention(q, k, v, causal=causal, window=window)
-    want = flash_attention_ref(q, k, v, causal, window)
+    (where it computes the same function) the library call timed.
+    ``scale`` None is Dh^-0.5; v's columns past ``dv`` (default all) are
+    zero, and so must the output's be."""
+    dv = dv or v.shape[-1]
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          scale=scale)
+    want = flash_attention_ref(q, k, v, causal, window, scale)
     torch.cuda.synchronize()
-    tag = f"flash_attention {tuple(q.shape)} kv {k.shape[2]} {q.dtype}"
+    tag = (f"flash_attention {tuple(q.shape)} kv {k.shape[2]} v {dv} "
+           f"{q.dtype} scale {scale}")
     check(got.shape == q.shape and got.dtype == q.dtype and
           bool(torch.isfinite(got).all()), f"{tag}: shape / dtype / "
           f"non-finite")
+    check(not got[..., dv:].any(), f"{tag}: output past v's {dv} columns "
+          f"not zero")
     tol = FLASH_TOL[q.dtype]
     err = float((got.float() - want.float()).abs().max())
     check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
           f"{tag}: max abs err {err} beyond rtol=atol={tol}")
-    out = {"shape": list(q.shape), "kv_heads": k.shape[2],
-           "dtype": str(q.dtype).replace("torch.", ""), "causal": causal,
-           "window": window, "max_abs_err": err}
+    out = {"shape": list(q.shape), "kv_heads": k.shape[2], "v_dim": dv,
+           "scale": scale, "dtype": str(q.dtype).replace("torch.", ""),
+           "causal": causal, "window": window, "max_abs_err": err}
     if q.dtype != torch.float32:
         want32 = flash_attention_ref(q.float(), k.float(), v.float(), causal,
-                                     window)
+                                     window, scale)
         err32 = float((got.float() - want32).abs().max())
         check(torch.allclose(got.float(), want32, rtol=FLASH_F32_TOL,
                              atol=FLASH_F32_TOL),
@@ -1588,11 +1629,12 @@ def measure_flash(q, k, v, causal: bool = True, window: int = 0,
         del want32
     del got, want
     out["ms"] = timed_ms(lambda: flash_attention(q, k, v, causal=causal,
-                                                 window=window))
+                                                 window=window, scale=scale))
     out["plain_ms"] = timed_ms(lambda: flash_attention_ref(
-        q, k, v, causal, window), iters=plain_iters, warmup=1)
+        q, k, v, causal, window, scale), iters=plain_iters, warmup=1)
     same = causal and (window == 0 or window >= q.shape[1])
-    out["library_ms"] = timed_ms(sdpa_call(q, k, v)) if same else None
+    out["library_ms"] = timed_ms(sdpa_call(q, k, v, scale)) if same \
+        else None
     out["bound_ms"], out["bound_by"] = flash_bound(q, k, causal, window)
     return out
 
@@ -1600,12 +1642,13 @@ def measure_flash(q, k, v, causal: bool = True, window: int = 0,
 def flash_at_shapes(dev: torch.device) -> list:
     results = []
     for case in FLASH_CASES:
-        *_, causal, window = case
+        *_, dv, _, causal, window, scale = case
         m = measure_flash(*flash_inputs(case, dev), causal=causal,
-                          window=window)
+                          window=window, scale=scale, dv=dv)
         results.append(m)
-        log(f"[flash] {m['shape']} kv {m['kv_heads']} {m['dtype']} causal "
-            f"{causal} window {window}: kernel {m['ms']:.4f} ms, plain "
+        log(f"[flash] {m['shape']} kv {m['kv_heads']} v {dv} {m['dtype']} "
+            f"causal {causal} window {window} scale {scale}: kernel "
+            f"{m['ms']:.4f} ms, plain "
             f"{m['plain_ms']:.4f} ms, library {m['library_ms']} ms, bound "
             f"{m['bound_ms']:.4f} ms ({m['bound_by']}), max abs err "
             f"{m['max_abs_err']:.3g}, band errors against float32 "
@@ -1683,7 +1726,8 @@ def rg_serve_path(dev: torch.device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 15: serve the MoE, encoder-decoder and vision families.
+# Phase 15: serve the MoE, encoder-decoder, vision and latent-attention
+# families.
 # ---------------------------------------------------------------------------
 
 def host_and_device_ms(fn) -> dict:
@@ -1779,6 +1823,39 @@ def moe_serve(dev) -> dict:
                           capacity=C, dropped_share=dropped,
                           same_expert_bf16_f32=same_expert,
                           f32_rel_err_by_layers=errs)
+
+
+def mla_serve(dev) -> dict:
+    """(d) deepseek-v2-lite at full width and depth through the entry
+    point, its parameters in bfloat16 (as it is served): one
+    ``flash_attention`` launch a layer, all in prefill (the decompressed
+    form); decode over the latent rings (the absorbed form) replayed
+    from one CUDA graph a call, 1 eager / 1 captured / MLA_NEW - 2
+    replayed steps, its text equal to the eager loop's
+    (:func:`recorded_generate`); then one more served call, in which
+    each layer's two eager decode steps (the first and the captured
+    one) count on the latent route and the replays count nothing."""
+    cfg, params = family_model(MLA_ARCH, dev, "mla",
+                               param_dtype=torch.bfloat16)
+    rec, launches, times, busy = recorded_generate(cfg, params, {}, "mla",
+                                                   new=MLA_NEW)
+    n = cfg.n_layers
+    check(launches["flash_attention"] == n and
+          rec.prefill_launches["flash_attention"] == n,
+          f"[mla] flash_attention launches {launches} (prefill "
+          f"{rec.prefill_launches}), want one a layer = {n}")
+    g0, a0 = serve.decode_graph_counts(), blocks.attn_decode_counts()
+    serve.generate(cfg, params, rec.batch["tokens"], max_new=MLA_NEW,
+                   s_max=SERVE_S_MAX)
+    paths = {p: c - g0[p] for p, c in serve.decode_graph_counts().items()}
+    latent = blocks.attn_decode_counts()["latent"] - a0["latent"]
+    log(f"[mla] a served call of {MLA_NEW}: decode steps by path {paths}, "
+        f"{latent} latent decode attention calls over {n} layers")
+    check(paths == {"captured": 1, "replayed": MLA_NEW - 2, "eager": 1}
+          and latent == 2 * n, f"[mla] decode paths {paths}, latent "
+          f"calls {latent}, want 1/{MLA_NEW - 2}/1 and {2 * n}")
+    return family_summary("mla", cfg, times, busy, launches=launches,
+                          decode_paths=paths, latent_calls=latent)
 
 
 def encdec_serve(dev) -> dict:
@@ -1890,7 +1967,7 @@ def vision_serve(dev) -> dict:
 
 
 def smoke_card_vs_cpu(dev) -> dict:
-    """(d), (e): qwen3-moe's full parameter tree counted on ``meta``;
+    """(e), (f): qwen3-moe's full parameter tree counted on ``meta``;
     then every family's smoke config (attention_impl="pallas") on the
     card and on the CPU from the same seeded parameters and batch (normal
     frames and image embeddings): float32 prefill logits and 4 decode
@@ -1975,7 +2052,7 @@ def families_path(dev) -> dict:
     t_phase = time.perf_counter()
     out = {}
     for name, fn in (("moe", moe_serve), ("encdec", encdec_serve),
-                     ("vision", vision_serve),
+                     ("vision", vision_serve), ("mla", mla_serve),
                      ("smoke", smoke_card_vs_cpu)):
         t0 = time.perf_counter()
         out[name] = fn(dev)
@@ -3012,7 +3089,7 @@ def phases(dev, smi: str, t_start: float) -> int:
         "main_path": {k: main_r[k] for k in ("shape", "ms", "plain_ms",
                                              "bound_ms", "max_abs_err")},
     })
-    head, long_, gqa, vision = flash
+    head, long_, gqa, vision, *mla = flash
     main_f = rg["main_flash"]
     main_v = fam["vision"].pop("main_flash")
     keys = ("shape", "kv_heads", "dtype", "window", "ms", "plain_ms",
@@ -3039,6 +3116,8 @@ def phases(dev, smi: str, t_start: float) -> int:
         "long": {k: long_[k] for k in bf16_keys},
         "gqa_f32": {k: gqa[k] for k in keys},
         "vision_mha": {k: vision[k] for k in bf16_keys},
+        "mla": [{k: m[k] for k in bf16_keys + ("v_dim", "scale")}
+                for m in mla],
         "main_path": {k: main_f[k] for k in bf16_keys},
         "main_path_vision": {k: main_v[k] for k in bf16_keys},
         "serve": dict(rg["times"], device=rg["busy"],

@@ -26,7 +26,7 @@ ARCHS = (
     "rwkv6_1_6b",
     "phi_3_vision_4_2b",
 )
-PORT_ARCHS = ("mellum2_12b_a2_5b",)
+PORT_ARCHS = ("mellum2_12b_a2_5b", "deepseek_v2_lite")
 
 # accept dashed ids from the assignment table too
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
@@ -45,6 +45,8 @@ _ALIASES.update({
 _PORT_ALIASES = {
     "mellum2-12b-a2.5b": "mellum2_12b_a2_5b",
     "Mellum2-12B-A2.5B-Instruct": "mellum2_12b_a2_5b",
+    "deepseek-v2-lite": "deepseek_v2_lite",
+    "DeepSeek-V2-Lite": "deepseek_v2_lite",
 }
 
 
@@ -61,14 +63,21 @@ def smoke_config(arch: str) -> ModelConfig:
     """Reduced same-family config: ~1M params, CPU-friendly."""
     cfg = get_config(arch)
     n_layers = max(2 * len(cfg.pattern) + (1 if len(cfg.pattern) > 1 else 0),
-                   2)
+                   2, cfg.first_dense + 2)
     moe = None
     if cfg.moe is not None:
         # ample capacity: capacity drops are data-dependent and would
         # desynchronize teacher-forcing vs decode in consistency tests
         moe = MoEConfig(n_experts=4, top_k=2, d_expert=32,
                         capacity_factor=4.0, router=cfg.moe.router,
-                        dropless=cfg.moe.dropless)
+                        dropless=cfg.moe.dropless,
+                        norm_topk_prob=cfg.moe.norm_topk_prob,
+                        d_shared=32 * (cfg.moe.d_shared
+                                       // cfg.moe.d_expert))
+    # MLA's widths at the smoke size: q/k heads of 16 + 8 (a multiple of
+    # 8, as the flash kernel takes), v heads of 16, a latent of 32
+    mla = dict(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+               v_head_dim=16) if cfg.is_mla else {}
     kv = max(1, 4 * cfg.n_kv_heads // cfg.n_heads)
     # a YaRN rope's original context cut to the smoke window, so a smoke
     # prompt runs past it as the served contexts run past the published
@@ -83,4 +92,4 @@ def smoke_config(arch: str) -> ModelConfig:
         encoder_layers=2 if cfg.is_encdec else 0, encoder_seq=24,
         n_img_tokens=8, d_rnn=64, decay_lora=8, attention_chunk=16,
         head_pad=0, kv_pad=0,
-        rwkv_chunk=8, dtype="float32", **ropes)
+        rwkv_chunk=8, dtype="float32", **ropes, **mla)

@@ -54,15 +54,18 @@ def check_flash_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    scale: float = None) -> torch.Tensor:
     """Attention of q over k, v with query i seeing key j where
-    ``j <= i`` (``causal``) and ``i - j < window`` (``window`` > 0).
-    Returns (B, Sq, H, Dh) in q's dtype.  Forward-only: raises where an
-    input requires grad in grad mode (:func:`ops.forward_only`)."""
+    ``j <= i`` (``causal``) and ``i - j < window`` (``window`` > 0),
+    the scores scaled by ``scale`` (default Dh^-0.5).  Returns
+    (B, Sq, H, Dh) in q's dtype.  Forward-only: raises where an input
+    requires grad in grad mode (:func:`ops.forward_only`)."""
     check_flash_attention(q, k, v)
     ops.forward_only("flash_attention", q, k, v)
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if not ops.on_cuda(q, k, v):
-        return flash_attention_ref(q, k, v, causal, window)
+        return flash_attention_ref(q, k, v, causal, window, scale)
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     o = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
@@ -72,5 +75,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    b, sq, sk, h, kv, dh, *q.stride()[:3], *k.stride()[:3],
                    *v.stride()[:3], int(bool(causal)), int(window),
-                   float(dh ** -0.5), DTYPES[q.dtype])
+                   scale, DTYPES[q.dtype])
     return o

@@ -105,13 +105,16 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        scale: float = None) -> torch.Tensor:
     """The model's ``attention_naive`` with positions 0..S-1 for both q
-    and k (the kernel derives them from indices).  q: (B, Sq, H, Dh);
-    k, v: (B, Sk, KV, Dh)."""
+    and k (the kernel derives them from indices), the scores scaled by
+    ``scale`` (default Dh^-0.5).  q: (B, Sq, H, Dh); k, v: (B, Sk, KV,
+    Dh)."""
     from ..models.layers import attention_naive
     b, sq = q.shape[:2]
     sk = k.shape[1]
     q_pos = torch.arange(sq, device=q.device).expand(b, sq)
     k_pos = torch.arange(sk, device=q.device).expand(b, sk)
-    return attention_naive(q, k, v, q_pos, k_pos, causal, window)
+    return attention_naive(q, k, v, q_pos, k_pos, causal, window,
+                           scale=scale)

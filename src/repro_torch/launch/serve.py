@@ -52,19 +52,47 @@ class Generated(NamedTuple):
                                 # last position, then each decode step's
 
 
+# device -> [capture stream, memory pool id, the last graph captured]:
+# every call's decode graph is captured on that stream and allocates
+# from that pool, for the process's life
+_CAPTURE = {}
+
+
+def _capture_place(dev: torch.device) -> list:
+    """The side stream and the memory pool that decode graphs on ``dev``
+    share across calls, and the last graph captured there.  Captured
+    allocations come from the pool, and the caching allocator cannot
+    free cached memory while a stream captures: a pool made anew at
+    every call would need fresh device memory each time, which the
+    general pool's cached segments (rings and prefill transients of
+    other lengths) may all hold.  The shared pool keeps what the last
+    graph used, for the next one to reuse; the last graph is kept until
+    the next is captured, since a pool that no graph holds is released
+    and cannot be captured into again."""
+    if dev not in _CAPTURE:
+        _CAPTURE[dev] = [torch.cuda.Stream(dev),
+                         torch.cuda.graph_pool_handle(), None]
+    return _CAPTURE[dev]
+
+
 def _capture(params, caches, batch: dict, cfg):
     """One decode step captured into a CUDA graph on a side stream
-    (capture runs nothing on the card).  Returns the graph, the logits
-    tensor that each replay overwrites, and the grouped-expert calls
-    that a traced replay tags (``models.blocks.captured_experts``)."""
+    (capture runs nothing on the card), its memory from the pool that
+    every call's graph shares (:func:`_capture_place`; the graph before
+    it is never replayed again, so none overwrites memory another
+    reads).  Returns the graph, the logits tensor that each replay
+    overwrites, and the grouped-expert calls that a traced replay tags
+    (``models.blocks.captured_experts``)."""
+    place = _capture_place(batch["tokens"].device)
+    stream, pool, _ = place
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(torch.cuda.Stream(batch["tokens"].device)), \
-            captured_experts() as experts:
-        graph.capture_begin(capture_error_mode="thread_local")
+    with torch.cuda.stream(stream), captured_experts() as experts:
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
             logits, _ = decode_step(params, caches, batch, cfg)
         finally:
             graph.capture_end()
+    place[2] = graph            # holds the pool; the graph before it goes
     return graph, logits, experts
 
 
@@ -89,7 +117,9 @@ def generate(cfg, params, prompts, max_new: int = 32,
     nothing back to the host and writes the rings in place
     (``models.blocks``); its (B, 1) token and position inputs stay on
     the device, refilled there before each replay; the graph is the
-    call's own, dropped when it returns.  Sampling stays outside the
+    call's own (kept after it returns only to hold the pool), and its
+    memory comes from one pool that every call's graph reuses
+    (:func:`_capture_place`).  Sampling stays outside the
     graph; the logits a replay returns are overwritten by the next, so
     ``details`` keeps copies.  In a traced call each replayed step
     records its grouped-expert calls as ``moe.experts`` spans under its

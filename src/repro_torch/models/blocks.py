@@ -2,7 +2,9 @@
 has them: the attention block (global and sliding-window, with a ring
 cache), encoder–decoder cross-attention, the SwiGLU MLP, the
 mixture-of-experts MLP, the RG-LRU recurrent block (Griffin /
-recurrentgemma) and the RWKV-6 block (Finch).
+recurrentgemma) and the RWKV-6 block (Finch); and, the port's alone,
+DeepSeek-V2's multi-head latent attention (:func:`apply_mla`) with its
+latent ring.
 
 Every block follows the same contract::
 
@@ -16,6 +18,8 @@ encoder–decoder models, the encoder output and its positions.  Caches:
 
 * attention — (B, S_alloc, KV, Dh) K and V rings, the absolute position
   of every slot (-1 = empty) and the next write index (a Python int);
+* latent attention — one (B, S_alloc, kv_lora_rank + qk_rope_head_dim)
+  ring of latent rows, positions and write index likewise;
 * RG-LRU — the (B, Dr) float32 state and the (B, conv_w-1, Dr) conv
   tail;
 * RWKV — the (B, H, Dh, Dh) wkv state (k-major) and the (B, D)
@@ -24,13 +28,13 @@ encoder–decoder models, the encoder output and its positions.  Caches:
 Caches are updated out of place, as in JAX: a new cache is returned and
 the one passed in is left as it was.  The one exception is a decode step
 captured into a CUDA graph (``launch.serve.generate``, where
-:func:`capturable` holds): there the attention rings are written in
-place (:func:`apply_attn`).
+:func:`capturable` holds): there the attention and latent rings are
+written in place (:func:`apply_attn`, :func:`apply_mla`).
 """
 from __future__ import annotations
 
 import dataclasses
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from contextvars import ContextVar
 from typing import NamedTuple, Optional, Union
 
@@ -60,7 +64,8 @@ class Ctx:
     positions: torch.Tensor           # (B, S) absolute positions
     mode: str = "train"               # train | prefill | decode
     # this layer's cache (decode)
-    cache: Optional[Union["AttnCache", "RGLRUCache", "RWKVCache"]] = None
+    cache: Optional[Union["AttnCache", "LatentCache", "RGLRUCache",
+                          "RWKVCache"]] = None
     enc_out: Optional[torch.Tensor] = None   # encoder output (cross-attn)
     enc_pos: Optional[torch.Tensor] = None
 
@@ -176,7 +181,7 @@ _ATTN_DECODE_FAMILY = REGISTRY.counter(
     "repro_attn_decode_total", "Decode attention calls over the K/V rings "
     "by route", labels=("path",))
 _ATTN_DECODE = {p: _ATTN_DECODE_FAMILY.labels(path=p)
-                for p in ("grouped", "expanded")}
+                for p in ("grouped", "expanded", "latent")}
 
 
 def attn_decode_counts() -> dict:
@@ -200,19 +205,20 @@ def capturable(cfg: ModelConfig, caches, device: torch.device) -> bool:
     """Whether a decode step of ``cfg`` over ``caches`` can be captured
     into a CUDA graph, i.e. reads nothing back to the host: the
     parameters on a CUDA ``device``, every layer's cache an
-    ``AttnCache`` on plain tensors (no recurrent state, nothing
-    sharded), no head padding (its ``kv_map``), and a dropless MoE's
-    grouped products on torch's fast path, bfloat16 on an sm_90 card or
-    newer (its other path reads the experts' offsets back to the host).
-    A captured step writes the rings in place (:func:`apply_attn`)."""
+    ``AttnCache`` or a ``LatentCache`` on plain tensors (no recurrent
+    state, nothing sharded), no head padding (its ``kv_map``), and a
+    dropless MoE's grouped products on torch's fast path, bfloat16 on an
+    sm_90 card or newer (its other path reads the experts' offsets back
+    to the host).  A captured step writes the rings in place
+    (:func:`apply_attn`, :func:`apply_mla`)."""
     if device.type != "cuda" or cfg.phys_heads != cfg.n_heads:
         return False
     if cfg.moe and cfg.moe.dropless and (
             cfg.dtype != "bfloat16"
             or torch.cuda.get_device_capability(device)[0] < 9):
         return False
-    return all(isinstance(c, AttnCache) and not _is_dtensor(c.k)
-               for c in caches)
+    return all(isinstance(c, (AttnCache, LatentCache))
+               and not _is_dtensor(c[0]) for c in caches)
 
 
 def _write_ring_in_place(cache: AttnCache, k, v, positions):
@@ -333,6 +339,141 @@ def apply_cross_attn(p: dict, x: torch.Tensor, ctx: Ctx,
 
 
 # =============================================================================
+# Multi-head latent attention (DeepSeek-V2, A layers where cfg.is_mla)
+# =============================================================================
+
+def init_mla(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """MLA with no q-LoRA: ``wq`` (D, H·(dn + dr)), ``wkv_a`` (D, R + dr)
+    (the latent and the shared rope key), ``kv_ln`` (R,), ``wkv_b``
+    (R, H·(dn + dv)) (each head's k_nope and v columns side by side) and
+    ``wo`` (H·dv, D); dn, dr, dv the nope, rope and v head widths, R
+    the latent rank."""
+    D, H, R = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dev = gen.device
+    return {
+        "ln": torch.zeros((D,), dtype=torch.float32, device=dev),
+        "wq": _dense_init(gen, (D, H * cfg.qk_head_dim)),
+        "wkv_a": _dense_init(gen, (D, cfg.latent_dim)),
+        "kv_ln": torch.zeros((R,), dtype=torch.float32, device=dev),
+        "wkv_b": _dense_init(gen, (R, H * (cfg.qk_nope_head_dim
+                                           + cfg.v_head_dim))),
+        "wo": _dense_init(gen, (H * cfg.v_head_dim, D)),
+    }
+
+
+class LatentCache(NamedTuple):
+    ring: torch.Tensor    # (B, S_alloc, R + dr) latent rows, roped key last
+    pos: torch.Tensor     # (B, S_alloc) int32 absolute positions; -1 = empty
+    index: int            # next global write position
+
+
+def init_latent_cache(cfg: ModelConfig, batch: int, s_max: int,
+                      device: torch.device) -> LatentCache:
+    return LatentCache(
+        torch.zeros((batch, s_max, cfg.latent_dim), dtype=compute_dtype(cfg),
+                    device=device),
+        torch.full((batch, s_max), -1, dtype=torch.int32, device=device), 0)
+
+
+def _write_latent(cache: LatentCache, rows, positions, mode: str):
+    """The step's latent rows and positions into the ring: prefill at
+    slot p % S_alloc of each position p of the prompt's tail, decode at
+    the slot :func:`apply_attn` takes (copies of the ring), or, while a
+    CUDA graph captures, into the ring itself at ``positions % S_alloc``
+    computed on the card (as :func:`_write_ring_in_place`)."""
+    s_alloc, S = cache.ring.shape[1], rows.shape[1]
+    if mode == "decode" and _capturing(cache.ring):
+        slots = positions[0].long() % s_alloc
+        cache.ring.index_copy_(1, slots, rows)
+        cache.pos.index_copy_(1, slots, positions.to(torch.int32))
+        return cache.ring, cache.pos
+    ring, pos = cache.ring.clone(), cache.pos.clone()
+    if mode == "decode":
+        slot = max(0, min(cache.index % s_alloc, s_alloc - S))
+        ring[:, slot:slot + S] = rows
+        pos[:, slot:slot + S] = positions.to(torch.int32)
+    else:
+        take = min(s_alloc, S)
+        tail_pos = positions[:, -take:].to(torch.int32)
+        slots = (tail_pos[0] % s_alloc).long()
+        ring[:, slots] = rows[:, -take:]
+        pos[:, slots] = tail_pos
+    return ring, pos
+
+
+def apply_mla(p: dict, x: torch.Tensor, ctx: Ctx, cfg: ModelConfig):
+    """Multi-head latent attention sublayer (pre-norm; DeepSeek-V2 §2.1).
+    Returns (residual_out, cache).
+
+    c = RMSNorm(h·W_kva[:, :R]) and k_pe = rope(h·W_kva[:, R:]), one row
+    of R + dr a position, shared by every head, is all the cache keeps;
+    q = h·W_q, each head [q_nope | q_pe] with rope on its last dr dims
+    (``layers.rope``'s ``rotary_dims``).  The scores are scaled by
+    (dn + dr)^-0.5 · m², m² the rope's ``softmax_factor`` (DeepSeek's
+    YaRN).  Prefill and training run the decompressed form: [k_nope | v]
+    = c·W_kvb a head, k = [k_nope | k_pe], through
+    ``layers.attention`` (``cfg.attention_impl``: the flash kernel),
+    with v zero-padded to the q/k head width and the output sliced back
+    to dv.  Decode runs the absorbed form over the latent ring: W_kvb's
+    k_nope part folded into the query (q_nope·W_UKᵀ, R wide), MQA over
+    the ring as keys (R + dr wide) and its first R columns, a view, as
+    values (``layers.attention_decode``, counted in
+    ``repro_attn_decode_total{path="latent"}``), then W_kvb's v part
+    after the attention.  Span ``attn.mla`` (``form``
+    decompressed/absorbed, ``batch``, ``tokens``, ``keys``: the key
+    positions the step's queries attend over) for every call run
+    eagerly; none while a CUDA graph captures.  Nothing is read back to
+    the host."""
+    B, S, _ = x.shape
+    H, R = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    rope = rope_for(cfg, ATTN)
+    scale = cfg.qk_head_dim ** -0.5 * rope.softmax_factor
+    decode = ctx.mode == "decode"
+    keys = ctx.cache.ring.shape[1] if decode else S
+    sp = nullcontext() if _capturing(x) else span(
+        "attn.mla", form="absorbed" if decode else "decompressed",
+        batch=B, tokens=B * S, keys=keys)
+    with sp:
+        h = L.rms_norm(x, _c(p["ln"], cfg), cfg.norm_eps)
+        q = (h @ _c(p["wq"], cfg)).view(B, S, H, dn + dr)
+        q = L.rope(q, ctx.positions, rope, rotary_dims=dr)
+        kv_a = h @ _c(p["wkv_a"], cfg)                        # (B, S, R + dr)
+        c = L.rms_norm(kv_a[..., :R], _c(p["kv_ln"], cfg), cfg.norm_eps)
+        k_pe = L.rope(kv_a[..., None, R:], ctx.positions, rope)
+        wkv_b = _c(p["wkv_b"], cfg).view(R, H, dn + dv)
+        new_cache = None
+        if decode:
+            rows = torch.cat([c, k_pe[:, :, 0]], dim=-1)
+            ring, pos = _write_latent(ctx.cache, rows, ctx.positions,
+                                      "decode")
+            new_cache = LatentCache(ring, pos, ctx.cache.index + S)
+            _ATTN_DECODE["latent"].inc()
+            q_lat = torch.einsum("bshd,rhd->bshr", q[..., :dn],
+                                 wkv_b[..., :dn])
+            o = L.attention_decode(torch.cat([q_lat, q[..., dn:]], dim=-1),
+                                   ring[:, :, None], ring[:, :, None, :R],
+                                   ctx.positions, pos, scale=scale)
+            out = torch.einsum("bshr,rhd->bshd", o, wkv_b[..., dn:])
+        else:
+            kv = (c @ wkv_b.view(R, H * (dn + dv))).view(B, S, H, dn + dv)
+            k = torch.cat([kv[..., :dn], k_pe.expand(B, S, H, dr)], dim=-1)
+            v = F.pad(kv[..., dn:], (0, dn + dr - dv))
+            del kv
+            out = L.attention(q, k, v, ctx.positions, ctx.positions,
+                              causal=True, impl=cfg.attention_impl,
+                              chunk=cfg.attention_chunk, scale=scale
+                              )[..., :dv]
+            del k, v
+            if ctx.mode == "prefill" and ctx.cache is not None:
+                rows = torch.cat([c, k_pe[:, :, 0]], dim=-1)
+                new_cache = LatentCache(*_write_latent(
+                    ctx.cache, rows, ctx.positions, "prefill"), S)
+        out = out.reshape(B, S, H * dv) @ _c(p["wo"], cfg)
+    return x + out, new_cache
+
+
+# =============================================================================
 # MLP / MoE
 # =============================================================================
 
@@ -353,15 +494,22 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """The router and the (E, ·, ·) experts; with shared experts also
+    ``shared``, one SwiGLU of width ``d_shared``."""
     m = cfg.moe
     D, E, F_ = cfg.d_model, m.n_experts, m.d_expert
-    return {
+    p = {
         "ln": torch.zeros((D,), dtype=torch.float32, device=gen.device),
         "router": _dense_init(gen, (D, E)),
         "w_gate": _dense_init(gen, (E, D, F_)),
         "w_up": _dense_init(gen, (E, D, F_)),
         "w_down": _dense_init(gen, (E, F_, D)),
     }
+    if m.d_shared:
+        p["shared"] = {"w_gate": _dense_init(gen, (D, m.d_shared)),
+                       "w_up": _dense_init(gen, (D, m.d_shared)),
+                       "w_down": _dense_init(gen, (m.d_shared, D))}
+    return p
 
 
 def moe_capacity(m: MoEConfig, seq_len: int) -> int:
@@ -415,6 +563,10 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     m = cfg.moe
     if m.dropless:
         return apply_moe_grouped(p, x, cfg)
+    if m.d_shared or not m.norm_topk_prob:
+        raise NotImplementedError(
+            f"{cfg.name}: shared experts and unrenormalized gates run on "
+            f"the dropless path only")
     _, S, D = x.shape
     E, k = m.n_experts, m.top_k
     C = moe_capacity(m, S)
@@ -519,7 +671,9 @@ def record_replayed_experts(calls: list, wall0: float, dur: float) -> None:
 def apply_moe_grouped(p: dict, x: torch.Tensor,
                       cfg: ModelConfig) -> torch.Tensor:
     """Dropless token-choice MoE: every token's top-k experts, the gates
-    renormalized by their sum (``norm_topk_prob``), no capacity.
+    renormalized by their sum (``norm_topk_prob``), or else the softmax's
+    own probabilities (DeepSeek-V2's gate), no capacity; with shared experts (``d_shared``) every token's output
+    adds one SwiGLU of that width (span ``moe.shared``, tag ``rows``).
 
     The (token, expert) pairs are sorted by expert (a stable argsort),
     so each expert's rows are one contiguous run; one grouped product a
@@ -546,7 +700,8 @@ def apply_moe_grouped(p: dict, x: torch.Tensor,
     with span("moe.route", rows=T * k) as sp:
         logits = h.to(torch.float32) @ p["router"].to(torch.float32)
         gate, expert = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
-        gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+        if m.norm_topk_prob:
+            gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
         flat = expert.reshape(-1)                             # (T·k,)
         order = torch.argsort(flat, stable=True)
         counts, ends = expert_rows(flat, m.n_experts)
@@ -568,6 +723,11 @@ def apply_moe_grouped(p: dict, x: torch.Tensor,
         # back to (token, choice) order: the inverse of the sort
         y = y.index_select(0, torch.argsort(order)).view(T, k, D)
         out = y.mul_(gate.to(y.dtype)[..., None]).sum(1)
+    if m.d_shared:
+        sh = p["shared"]
+        with span("moe.shared", rows=T):
+            out = out + L.swiglu(h, _c(sh["w_gate"], cfg),
+                                 _c(sh["w_up"], cfg), _c(sh["w_down"], cfg))
     return x + out.reshape(B, S, D)
 
 

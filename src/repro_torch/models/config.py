@@ -11,6 +11,7 @@ recurrentgemma's (R, R, A) period fall out of config, not code.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 # block types
@@ -31,6 +32,12 @@ class MoEConfig:
     # True: every (token, expert) pair is computed (the grouped path of
     # ``blocks.apply_moe``); ``capacity_factor`` is then not read
     dropless: bool = False
+    # the dropless path's gates: renormalized by the top-k sum
+    # (``norm_topk_prob``), else the softmax's own probabilities
+    norm_topk_prob: bool = True
+    # shared experts, which every token takes: one SwiGLU of width
+    # ``d_shared`` (the shared experts' widths together)
+    d_shared: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +48,11 @@ class RopeConfig:
     blended between itself and itself / ``factor`` over a linear ramp
     from the ``beta_fast`` to the ``beta_slow`` rotation's dimension of
     ``original_max_position``, and cos and sin scaled by
-    ``attention_factor``."""
+    ``attention_factor``.  DeepSeek's YaRN (``mscale``,
+    ``mscale_all_dim`` given) scales cos and sin by
+    m(mscale) / m(mscale_all_dim) instead and the softmax by
+    m(mscale_all_dim)², with m(s) = 0.1·s·ln(factor) + 1
+    (:attr:`cos_sin_factor`, :attr:`softmax_factor`)."""
     theta: float = 10_000.0
     kind: str = "default"               # "default" | "yarn"
     factor: float = 1.0
@@ -49,6 +60,23 @@ class RopeConfig:
     beta_fast: float = 32.0
     beta_slow: float = 1.0
     attention_factor: float = 1.0
+    mscale: float = 0.0                 # 0: not DeepSeek's form
+    mscale_all_dim: float = 0.0
+
+    def _m(self, s: float) -> float:
+        return 1.0 if self.factor <= 1 else \
+            0.1 * s * math.log(self.factor) + 1.0
+
+    @property
+    def cos_sin_factor(self) -> float:
+        if not (self.mscale or self.mscale_all_dim):
+            return self.attention_factor
+        return self._m(self.mscale) / self._m(self.mscale_all_dim)
+
+    @property
+    def softmax_factor(self) -> float:
+        return self._m(self.mscale_all_dim) ** 2 if self.mscale_all_dim \
+            else 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +93,18 @@ class ModelConfig:
     head_dim: Optional[int] = None          # default d_model // n_heads
     window: int = 4096                      # for L blocks
     moe: Optional[MoEConfig] = None
+    # the first ``first_dense`` layers take a dense SwiGLU of width d_ff
+    # in place of ``moe`` (DeepSeek's ``first_k_dense_replace``)
+    first_dense: int = 0
+    # multi-head latent attention (DeepSeek-V2) on the A layers where
+    # ``kv_lora_rank`` > 0: the cache holds one (kv_lora_rank +
+    # qk_rope_head_dim) latent row a position; q and k heads are
+    # qk_nope_head_dim + qk_rope_head_dim wide, v heads v_head_dim; the
+    # queries come from one full-rank projection (no q-LoRA)
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
     # enc-dec (whisper): if set, n_layers applies to decoder; encoder below
     encoder_layers: int = 0
     encoder_seq: int = 1500                 # whisper conv-frontend output
@@ -113,6 +153,25 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def latent_dim(self) -> int:
+        """Width of an MLA cache row: the latent and the shared rope
+        key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    def sparse_mlp(self, layer: int) -> bool:
+        """Whether layer ``layer`` takes the MoE (past the leading dense
+        layers)."""
+        return self.moe is not None and layer >= self.first_dense
+
+    @property
     def phys_heads(self) -> int:
         return self.head_pad or self.n_heads
 
@@ -158,9 +217,15 @@ class ModelConfig:
         attn = D * H * Dh + 2 * D * KV * Dh + H * Dh * D
         if self.qkv_bias:
             attn += (H + 2 * KV) * Dh
+        if self.is_mla:
+            R = self.kv_lora_rank
+            attn = (D * H * self.qk_head_dim + D * self.latent_dim + R
+                    + R * H * (self.qk_nope_head_dim + self.v_head_dim)
+                    + H * self.v_head_dim * D)
         mlp = 3 * D * F if self.moe is None else (
             D * self.moe.n_experts
-            + self.moe.n_experts * 3 * D * self.moe.d_expert)
+            + self.moe.n_experts * 3 * D * self.moe.d_expert
+            + 3 * D * self.moe.d_shared)
         per_type[ATTN] = per_type[LOCAL_ATTN] = attn + mlp + 2 * D
         Dr = self.d_rnn_resolved
         per_type[RGLRU] = (2 * D * Dr + self.conv_width * Dr + 3 * Dr
@@ -168,8 +233,11 @@ class ModelConfig:
         per_type[RWKV] = (6 * D + 4 * D * D + 2 * D * self.decay_lora
                           + self.decay_lora * D + D
                           + 2 * D) + (2 * D * F + D * D)
-        for t in self.layer_types():
+        for i, t in enumerate(self.layer_types()):
             total += per_type[t]
+            if t in (ATTN, LOCAL_ATTN) and self.moe is not None and \
+                    not self.sparse_mlp(i):     # a leading dense layer
+                total += 3 * D * F - mlp
         if self.is_encdec:
             enc_attn = attn + 3 * D * F + 2 * D
             total += self.encoder_layers * enc_attn
@@ -183,8 +251,8 @@ class ModelConfig:
         full = self.n_params()
         expert_p = self.moe.n_experts * 3 * self.d_model * self.moe.d_expert
         active_p = self.moe.top_k * 3 * self.d_model * self.moe.d_expert
-        n_moe_layers = sum(1 for t in self.layer_types()
-                           if t in (ATTN, LOCAL_ATTN))
+        n_moe_layers = sum(1 for i, t in enumerate(self.layer_types())
+                           if t in (ATTN, LOCAL_ATTN) and self.sparse_mlp(i))
         return full - n_moe_layers * (expert_p - active_p)
 
 

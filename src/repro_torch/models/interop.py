@@ -63,7 +63,17 @@ def params_from_published(cfg: ModelConfig, tensors,
     ``self_attn.{q,k,v,o}_proj.weight`` (out, in),
     ``post_attention_layernorm.weight``, ``mlp.gate.weight`` (E, D) and
     ``mlp.experts.<e>.{gate,up,down}_proj.weight`` (out, in);
-    ``model.norm.weight``; ``lm_head.weight`` (V, D).
+    ``model.norm.weight``; ``lm_head.weight`` (V, D).  DeepSeek-V2's
+    names where ``cfg.is_mla``: ``self_attn.{q_proj,
+    kv_a_proj_with_mqa, kv_b_proj, o_proj}.weight`` and
+    ``self_attn.kv_a_layernorm.weight``; the leading dense layers'
+    ``mlp.{gate,up,down}_proj.weight``; the shared experts'
+    ``mlp.shared_experts.{gate,up,down}_proj.weight``.  The rope rows of
+    ``q_proj`` (each head's last ``qk_rope_head_dim``) and of
+    ``kv_a_proj_with_mqa`` (its last ``qk_rope_head_dim``) are stored
+    interleaved, as (pair, 2); they are de-interleaved here, once (even
+    rows, then odd: what Hugging Face's ``apply_rotary_pos_emb`` does to
+    q and k at every call), so the port's half-split rope applies.
 
     ``tensors`` maps a name to its tensor and may make each when it is
     read; each is read once, on its own device, and the layer it
@@ -75,7 +85,7 @@ def params_from_published(cfg: ModelConfig, tensors,
     divided by sqrt(d_model), which the port multiplies it by again (one
     rounding in ``dtype`` each way)."""
     check_supported(cfg)
-    if cfg.moe is None or set(cfg.layer_types()) - {ATTN, LOCAL_ATTN} or \
+    if set(cfg.layer_types()) - {ATTN, LOCAL_ATTN} or \
             cfg.qkv_bias or cfg.tie_embeddings or cfg.is_encdec or \
             cfg.frontend or cfg.padded_vocab != cfg.vocab:
         raise NotImplementedError(
@@ -95,19 +105,52 @@ def params_from_published(cfg: ModelConfig, tensors,
                                  torch.t)
                             for e in range(cfg.moe.n_experts)])
 
+    def swiglu(pre):
+        return {f"w_{p}": read(f"{pre}{p}_proj.weight", torch.t)
+                for p in ("gate", "up", "down")}
+
+    def rope_rows(w, width):
+        """Rows of each block of ``width``: the first width - dr as they
+        are, then the last dr's even rows, then its odd ones."""
+        dr = cfg.qk_rope_head_dim
+        w = w.reshape(-1, width, w.shape[-1])
+        rot = w[:, width - dr:]
+        return torch.cat([w[:, :width - dr], rot[:, 0::2], rot[:, 1::2]],
+                         dim=1).reshape(-1, w.shape[-1])
+
+    def mla(pre):
+        a = pre + "self_attn."
+        return {"ln": read(pre + "input_layernorm.weight", norm),
+                "wq": read(a + "q_proj.weight",
+                           lambda w: rope_rows(w, cfg.qk_head_dim).T),
+                "wkv_a": read(a + "kv_a_proj_with_mqa.weight",
+                              lambda w: rope_rows(w, cfg.latent_dim).T),
+                "kv_ln": read(a + "kv_a_layernorm.weight", norm),
+                "wkv_b": read(a + "kv_b_proj.weight", torch.t),
+                "wo": read(a + "o_proj.weight", torch.t)}
+
     out = {"embed": read("model.embed_tokens.weight",
                          lambda w: w / cfg.d_model ** 0.5),
            "final_norm": read("model.norm.weight", norm),
            "head": read("lm_head.weight", torch.t), "layers": []}
     for i in range(cfg.n_layers):
         pre = f"model.layers.{i}."
-        attn = {"ln": read(pre + "input_layernorm.weight", norm)}
-        for p in "qkvo":
-            attn[f"w{p}"] = read(f"{pre}self_attn.{p}_proj.weight", torch.t)
-        out["layers"].append({"attn": attn, "mlp": {
-            "ln": read(pre + "post_attention_layernorm.weight", norm),
-            "router": read(pre + "mlp.gate.weight", torch.t),
-            "w_gate": experts(pre, "gate_proj"),
-            "w_up": experts(pre, "up_proj"),
-            "w_down": experts(pre, "down_proj")}})
+        if cfg.is_mla:
+            attn = mla(pre)
+        else:
+            attn = {"ln": read(pre + "input_layernorm.weight", norm)}
+            for p in "qkvo":
+                attn[f"w{p}"] = read(f"{pre}self_attn.{p}_proj.weight",
+                                     torch.t)
+        mlp = {"ln": read(pre + "post_attention_layernorm.weight", norm)}
+        if not cfg.sparse_mlp(i):
+            mlp.update(swiglu(pre + "mlp."))
+        else:
+            mlp.update(router=read(pre + "mlp.gate.weight", torch.t),
+                       w_gate=experts(pre, "gate_proj"),
+                       w_up=experts(pre, "up_proj"),
+                       w_down=experts(pre, "down_proj"))
+            if cfg.moe.d_shared:
+                mlp["shared"] = swiglu(pre + "mlp.shared_experts.")
+        out["layers"].append({"attn": attn, "mlp": mlp})
     return out

@@ -80,17 +80,26 @@ def rope_inv_freq(r: RopeConfig, dim: int, device=None) -> torch.Tensor:
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
-         theta: "float | RopeConfig" = 10_000.0) -> torch.Tensor:
+         theta: "float | RopeConfig" = 10_000.0,
+         rotary_dims: int = 0) -> torch.Tensor:
     """Rotary embedding. x: (..., S, H, Dh), positions: (..., S).
-    ``theta`` is a default rope's base or a :class:`RopeConfig`."""
+    ``theta`` is a default rope's base or a :class:`RopeConfig`.
+    ``rotary_dims`` > 0 rotates only a head's last ``rotary_dims`` dims
+    (MLA's rope part), with frequencies over that width, and keeps the
+    others as they are."""
     r = theta if isinstance(theta, RopeConfig) else RopeConfig(theta=theta)
+    if rotary_dims and rotary_dims != x.shape[-1]:
+        keep = x.shape[-1] - rotary_dims
+        return torch.cat([x[..., :keep],
+                          rope(x[..., keep:], positions, r)], dim=-1)
     half = x.shape[-1] // 2
     freq = rope_inv_freq(r, x.shape[-1], x.device)
     angles = positions[..., None].to(torch.float32) * freq   # (..., S, half)
     cos = torch.cos(angles)[..., None, :]                    # over heads
     sin = torch.sin(angles)[..., None, :]
-    if r.attention_factor != 1.0:
-        cos, sin = cos * r.attention_factor, sin * r.attention_factor
+    factor = r.cos_sin_factor
+    if factor != 1.0:
+        cos, sin = cos * factor, sin * factor
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -123,12 +132,14 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
 
 
 def attention_naive(q, k, v, q_pos, k_pos, causal: bool = True,
-                    window: int = 0, kv_map=None) -> torch.Tensor:
-    """Reference attention. q: (B,Sq,H,Dh) k,v: (B,Sk,KV,Dh)."""
+                    window: int = 0, kv_map=None,
+                    scale: float = None) -> torch.Tensor:
+    """Reference attention. q: (B,Sq,H,Dh) k,v: (B,Sk,KV,Dh).  The
+    scores are scaled by ``scale`` (default Dh^-0.5)."""
     h = q.shape[2]
     k = _expand_kv(k, h, kv_map)
     v = _expand_kv(v, h, kv_map)
-    scale = q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) * scale
     scores = scores + _mask_bias(q_pos, k_pos, causal, window)[:, None]
@@ -136,12 +147,15 @@ def attention_naive(q, k, v, q_pos, k_pos, causal: bool = True,
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
-def attention_decode(q, k, v, q_pos, k_pos, window: int = 0
-                     ) -> torch.Tensor:
+def attention_decode(q, k, v, q_pos, k_pos, window: int = 0,
+                     scale: float = None) -> torch.Tensor:
     """Causal attention of a decode step over the K/V rings, grouped by
     KV head: what :func:`attention_naive` returns for q (B,Sq,H,Dh) and
-    rings k, v (B,S,KV,Dh), H = G·KV, with its masks, without repeating
-    the rings to H heads or upcasting them.
+    rings k (B,S,KV,Dh), v (B,S,KV,Dv), H = G·KV, with its masks and
+    ``scale`` (default Dh^-0.5), without repeating the rings to H heads
+    or upcasting them.  Dv may be below Dh: MLA's absorbed decode reads
+    one latent ring (KV = 1) as keys and its first Dv columns, a view,
+    as values.
 
     Each ring is read once, in its dtype, as (B, S, KV·Dh) — a view.
     The queries go into a block-diagonal (B, Sq·H, KV·Dh) matrix, each
@@ -155,31 +169,32 @@ def attention_decode(q, k, v, q_pos, k_pos, window: int = 0
     is H·Sq products a ring byte, so reading the rings still bounds the
     products."""
     b, sq, h, dh = q.shape
-    s, kv = k.shape[1], k.shape[2]
+    s, kv, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // kv
     qbd = q.new_zeros((b, sq, kv, g, kv, dh))
     torch.diagonal(qbd, dim1=2, dim2=4).copy_(
         q.view(b, sq, kv, g, dh).permute(0, 1, 3, 4, 2))
     qbd = qbd.view(b, sq * h, kv * dh)
-    kr, vr = k.reshape(b, s, kv * dh), v.reshape(b, s, kv * dh)
+    kr, vr = k.reshape(b, s, kv * dh), v.reshape(b, s, kv * dv)
     if q.is_cuda and q.dtype == k.dtype in (torch.bfloat16, torch.float16):
         scores = torch.bmm(qbd, kr.transpose(1, 2), out_dtype=torch.float32)
     else:   # the CPU has no such overload: the upcast products are equal
         scores = torch.bmm(qbd.to(torch.float32),
                            kr.to(torch.float32).transpose(1, 2))
-    scores = scores.view(b, sq, h, s) * dh ** -0.5
+    scores = scores.view(b, sq, h, s) * (dh ** -0.5 if scale is None
+                                         else scale)
     scores = scores + _mask_bias(q_pos, k_pos, True, window)[:, :, None]
     p = torch.softmax(scores, dim=-1).to(v.dtype).view(b, sq * h, s)
-    out = torch.bmm(p, vr).view(b, sq, kv, g, kv, dh)
+    out = torch.bmm(p, vr).view(b, sq, kv, g, kv, dv)
     return torch.diagonal(out, dim1=2, dim2=4).permute(
-        0, 1, 4, 2, 3).reshape(b, sq, h, dh)
+        0, 1, 4, 2, 3).reshape(b, sq, h, dv)
 
 
-def _online_block(q_blk, k_blk, v_blk, bias, carry):
+def _online_block(q_blk, k_blk, v_blk, bias, carry, scale=None):
     """One online-softmax update. q_blk:(B,Bq,H,Dh), k/v:(B,Ck,H,Dh),
     bias:(B,Bq,Ck) or broadcastable; carry=(m,l,acc)."""
     m, l, acc = carry
-    scale = q_blk.shape[-1] ** -0.5
+    scale = q_blk.shape[-1] ** -0.5 if scale is None else scale
     s = torch.einsum("bqhd,bkhd->bhqk", q_blk.to(torch.float32),
                      k_blk.to(torch.float32)) * scale
     s = s + bias[:, None]                       # (B,H,Bq,Ck)
@@ -195,7 +210,8 @@ def _online_block(q_blk, k_blk, v_blk, bias, carry):
 
 def attention_chunked(q, k, v, q_pos, k_pos, causal: bool = True,
                       window: int = 0, chunk: int = 1024,
-                      triangular: bool = False, kv_map=None) -> torch.Tensor:
+                      triangular: bool = False, kv_map=None,
+                      scale: float = None) -> torch.Tensor:
     """Blocked online-softmax attention (flash-style).
 
     ``triangular=True`` skips KV blocks that are fully masked (causal
@@ -238,7 +254,8 @@ def attention_chunked(q, k, v, q_pos, k_pos, causal: bool = True,
                              device=q.device))
         for j in alike_steps(lo, hi, q):
             bias = _mask_bias(qp[:, i], kp[:, j], causal, window)
-            carry = _online_block(qb[:, i], kb[:, j], vb[:, j], bias, carry)
+            carry = _online_block(qb[:, i], kb[:, j], vb[:, j], bias, carry,
+                                  scale)
         _, l, acc = carry
         out = acc / torch.clamp_min(l, 1e-30)[..., None]
         return out.transpose(1, 2).to(q.dtype)          # (B,Bq,H,Dh)
@@ -257,12 +274,15 @@ def attention_chunked(q, k, v, q_pos, k_pos, causal: bool = True,
 
 def attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
               window: int = 0, impl: str = "chunked", chunk: int = 1024,
-              kv_map=None) -> torch.Tensor:
+              kv_map=None, scale: float = None) -> torch.Tensor:
     """Dispatch in the JAX package's order: ``pallas`` runs the
     ``flash_attention`` kernel wherever the JAX package runs its Pallas
-    kernel; else ``naive`` for short sequences."""
+    kernel; else ``naive`` for short sequences.  ``scale`` multiplies
+    the scores (default Dh^-0.5)."""
     if impl == "pallas" and _pallas_attention_ok(q, k, chunk, kv_map):
-        return flash_attention(q, k, v, causal=causal, window=window)
+        # the kernel's own default where no scale is given
+        kw = {} if scale is None else {"scale": scale}
+        return flash_attention(q, k, v, causal=causal, window=window, **kw)
     if impl not in ("naive", "chunked", "pallas", "chunked_tri"):
         raise ValueError(f"unknown attention impl {impl!r}")
     # K/V expanded to the query heads (a copy, as the forms below make),
@@ -277,10 +297,12 @@ def attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
         if idx is not None:
             k, v = k.index_select(2, idx), v.index_select(2, idx)
         if impl == "naive" or q.shape[1] <= chunk:
-            return (attention_naive(q, k, v, q_pos, k_pos, causal, window),)
+            return (attention_naive(q, k, v, q_pos, k_pos, causal, window,
+                                    scale=scale),)
         return (attention_chunked(q, k, v, q_pos, k_pos, causal, window,
                                   chunk=chunk,
-                                  triangular=impl == "chunked_tri"),)
+                                  triangular=impl == "chunked_tri",
+                                  scale=scale),)
 
     heads, rows = ("batch", None, "model", None), ("batch", None)
     return run_local(core, (heads, kv_spec, kv_spec, rows, rows, None), (0,),

@@ -2,8 +2,12 @@
 ``models/model.py`` on PyTorch, for every family of its registry: global
 and sliding-window attention (``A``, ``L``) with a SwiGLU or a
 mixture-of-experts MLP, encoder–decoder cross-attention and a vision
-prefix, RG-LRU with a SwiGLU MLP (``R``) and RWKV-6 (``W``).  An unknown
-block type raises ``NotImplementedError``.
+prefix, RG-LRU with a SwiGLU MLP (``R``) and RWKV-6 (``W``); and the
+port's own: latent attention on the ``A`` layers where ``cfg.is_mla``
+(``blocks.apply_mla``, one latent ring a layer), and leading dense
+layers before the MoE ones (``cfg.first_dense``: a layer's MLP kind by
+its index, ``cfg.sparse_mlp``).  An unknown block type raises
+``NotImplementedError``.
 
 Parameters are a dict: ``embed`` (V, D), ``final_norm`` (D,), ``head``
 (D, V) unless tied, ``layers``, one dict per layer (``{"attn": ...,
@@ -54,32 +58,43 @@ BLOCK_TYPES = (ATTN, LOCAL_ATTN, RGLRU, RWKV)
 REMAT_BLOCK = ("block", "block_save_coll")
 _KV_BYTES = REGISTRY.gauge(
     "repro_kv_cache_bytes", "bytes of the attention K/V rings of the last "
-    "decode caches made, by kind: window (L layers) or full (A layers)",
-    labels=("kind",))
-# the family holds its children weakly
+    "decode caches made, by kind: window (L layers), full (A layers) or "
+    "latent (MLA's latent rings)", labels=("kind",))
+# the family holds its children weakly: window and full always, latent
+# only while the last caches made hold latent rings
 _KV_GAUGES = {k: _KV_BYTES.labels(kind=k) for k in ("window", "full")}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a block type the port has no
-    block for."""
+    block for, and for latent attention beside anything but ``A``
+    layers (no q-LoRA, windows, cross-attention or head padding)."""
     other = sorted(set(cfg.layer_types()) - set(BLOCK_TYPES))
     if other:
         raise NotImplementedError(
             f"{cfg.name}: the port runs block types {BLOCK_TYPES}; this "
             f"config has unknown block types {other}")
+    types = set(cfg.layer_types())
+    if ATTN in types and cfg.is_mla and (
+            types != {ATTN} or cfg.cross_attention or cfg.head_pad):
+        raise NotImplementedError(
+            f"{cfg.name}: latent attention runs on A layers alone, with "
+            f"no cross-attention or head padding")
 
 
 # =============================================================================
 # Parameter construction
 # =============================================================================
 
-def _init_layer(ltype: str, cfg: ModelConfig, gen: torch.Generator) -> dict:
+def _init_layer(ltype: str, cfg: ModelConfig, gen: torch.Generator,
+                i: int) -> dict:
     if ltype in (ATTN, LOCAL_ATTN):
-        p = {"attn": B.init_attn(cfg, gen)}
+        p = {"attn": B.init_mla(cfg, gen) if cfg.is_mla
+             else B.init_attn(cfg, gen)}
         if cfg.cross_attention:
             p["cross"] = B.init_attn(cfg, gen)
-        p["mlp"] = B.init_moe(cfg, gen) if cfg.moe else B.init_mlp(cfg, gen)
+        p["mlp"] = B.init_moe(cfg, gen) if cfg.sparse_mlp(i) \
+            else B.init_mlp(cfg, gen)
         return p
     if ltype == RGLRU:
         return {"rglru": B.init_rglru(cfg, gen), "mlp": B.init_mlp(cfg, gen)}
@@ -111,7 +126,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         params["head"] = place(("head",), torch.randn(
             (D, V), generator=gen, device=dev,
             dtype=torch.float32).mul_(D ** -0.5))
-    params["layers"] = [place(("layers", i), _init_layer(lt, cfg, gen))
+    params["layers"] = [place(("layers", i), _init_layer(lt, cfg, gen, i))
                         for i, lt in enumerate(cfg.layer_types())]
     if cfg.is_encdec:
         # the encoder: the decoder's dims, non-causal, SwiGLU MLPs
@@ -151,13 +166,16 @@ def abstract_params(cfg: ModelConfig) -> dict:
 # =============================================================================
 
 def _apply_layer(ltype: str, p: dict, x: torch.Tensor, ctx: B.Ctx,
-                 cfg: ModelConfig):
+                 cfg: ModelConfig, i: int):
     if ltype in (ATTN, LOCAL_ATTN):
-        window = cfg.window if ltype == LOCAL_ATTN else 0
-        x, cache = B.apply_attn(p["attn"], x, ctx, cfg, window=window)
+        if cfg.is_mla:
+            x, cache = B.apply_mla(p["attn"], x, ctx, cfg)
+        else:
+            window = cfg.window if ltype == LOCAL_ATTN else 0
+            x, cache = B.apply_attn(p["attn"], x, ctx, cfg, window=window)
         if cfg.cross_attention:
             x = B.apply_cross_attn(p["cross"], x, ctx, cfg)
-        if cfg.moe:
+        if cfg.sparse_mlp(i):
             return B.apply_moe(p["mlp"], x, cfg), cache
         return B.apply_mlp(p["mlp"], x, cfg), cache
     if ltype == RGLRU:
@@ -170,6 +188,8 @@ def _apply_layer(ltype: str, p: dict, x: torch.Tensor, ctx: B.Ctx,
 
 def _cache_for(ltype: str, cfg: ModelConfig, batch: int, s_max: int,
                device: torch.device):
+    if ltype == ATTN and cfg.is_mla:
+        return B.init_latent_cache(cfg, batch, s_max, device)
     if ltype == ATTN:
         return B.init_attn_cache(cfg, batch, s_max, device)
     if ltype == LOCAL_ATTN:
@@ -186,22 +206,31 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                device: torch.device) -> list:
     """Decode caches, one per layer; ``s_max`` sizes the attention
     rings (sliding-window layers hold at most ``cfg.window`` slots).
-    Sets ``repro_kv_cache_bytes{kind}`` to the rings' bytes."""
+    Sets ``repro_kv_cache_bytes{kind}`` to the rings' bytes (``latent``
+    only where the caches hold latent rings)."""
     check_supported(cfg)
     caches = [_cache_for(lt, cfg, batch, s_max, device)
               for lt in cfg.layer_types()]
-    kv = {"window": 0, "full": 0}
+    kv = {"window": 0, "full": 0, "latent": 0}
     for lt, c in zip(cfg.layer_types(), caches):
-        if lt in (ATTN, LOCAL_ATTN):
+        if isinstance(c, B.LatentCache):
+            kv["latent"] += c.ring.nbytes
+        elif lt in (ATTN, LOCAL_ATTN):
             kv["window" if lt == LOCAL_ATTN else "full"] += \
                 c.k.nbytes + c.v.nbytes
+    if kv["latent"]:
+        _KV_GAUGES["latent"] = _KV_BYTES.labels(kind="latent")
+    else:
+        _KV_GAUGES.pop("latent", None)
+        del kv["latent"]
     for kind, n in kv.items():
         _KV_GAUGES[kind].set(n)
     return caches
 
 
-def _gathered_layer(ltype: str, p: dict, x, ctx: B.Ctx, cfg: ModelConfig):
-    return _apply_layer(ltype, gathered(p), x, ctx, cfg)
+def _gathered_layer(ltype: str, p: dict, x, ctx: B.Ctx, cfg: ModelConfig,
+                    i: int):
+    return _apply_layer(ltype, gathered(p), x, ctx, cfg, i)
 
 
 def _is_tp_collective(func) -> bool:
@@ -232,10 +261,10 @@ def _run_layers(params, x, ctx: B.Ctx, cfg: ModelConfig, caches=None):
                         None if caches is None else caches[i],
                         ctx.enc_out, ctx.enc_pos)
         if remat:
-            x, c = checkpoint(_gathered_layer, lt, lp, x, sub_ctx, cfg,
+            x, c = checkpoint(_gathered_layer, lt, lp, x, sub_ctx, cfg, i,
                               use_reentrant=False, **kw)
         else:
-            x, c = _gathered_layer(lt, lp, x, sub_ctx, cfg)
+            x, c = _gathered_layer(lt, lp, x, sub_ctx, cfg, i)
         new_caches.append(c)
     return x, (None if all(c is None for c in new_caches) else new_caches)
 

@@ -94,8 +94,17 @@ per-layer metrics live in ``bench/metrics/``):
   calls (below).  Within a step run eagerly or captured, each attention
   layer counts its route over the K/V rings in
   ``repro_attn_decode_total{path}`` (``grouped``/``expanded``,
-  ``models.blocks.apply_attn``, traced or not).  No metric reads either
-  counter.
+  ``models.blocks.apply_attn``; ``latent``, the absorbed form over a
+  latent ring, ``models.blocks.apply_mla``; traced or not).  No metric
+  reads either counter, nor ``repro_kv_cache_bytes{kind}`` (the rings of
+  the last caches made: ``window``, ``full``, and ``latent`` while they
+  hold latent rings; ``models.model.init_cache``).
+* ``attn.mla`` (``form`` = ``decompressed``/``absorbed``, ``batch``,
+  ``tokens``, ``keys``: the key positions the call's queries attend
+  over): one latent-attention layer call run eagerly
+  (``models.blocks.apply_mla``; none while a decode step is captured);
+  ``mla.flash_roofline`` reads the decompressed calls under each
+  ``model.prefill``.
 * ``moe.route`` (``rows``, ``experts_hit``), ``moe.experts`` (``rows``,
   ``experts_hit``): the dropless expert layer's routing and grouped
   products (``models.blocks.apply_moe_grouped``; a traced call run
@@ -107,6 +116,9 @@ per-layer metrics live in ``bench/metrics/``):
   ``experts_hit``, over the replay's extent,
   ``models.blocks.record_replayed_experts``); ``moe.grouped_roofline``,
   over prefill and every decode step, replayed ones too.
+* ``moe.shared`` (``rows``): the shared experts' SwiGLU beside them,
+  every token's (``models.blocks.apply_moe_grouped`` where the config
+  has shared experts); ``/v1/trace``.
 """
 from __future__ import annotations
 

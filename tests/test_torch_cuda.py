@@ -1250,3 +1250,64 @@ def test_example_on_card_equals_cpu(card, tmp_path, name):
     got.pop("workdir", None)
     want.pop("workdir", None)
     _same_results(got, want)
+
+
+def test_mla_decode_graph_equals_eager_loop(card, monkeypatch):
+    """Smoke DeepSeek-V2-Lite in bfloat16: the absorbed decode over the
+    latent rings replayed from a CUDA graph gives the eager loop's tokens
+    and logits bit for bit; 1 step eager, 1 captured, the rest replayed;
+    each layer of a step run eagerly or captured counts one latent
+    decode."""
+    cfg = dataclasses.replace(smoke_config("deepseek-v2-lite"),
+                              dtype="bfloat16")
+    new = 24
+    lat0 = blocks.attn_decode_counts()["latent"]
+    got, counts = served(cfg, card, new)
+    assert counts == {"eager": 1, "captured": 1, "replayed": new - 2}
+    assert blocks.attn_decode_counts()["latent"] - lat0 == 2 * cfg.n_layers
+    monkeypatch.setattr(serve, "capturable", lambda *a: False)
+    want, counts = served(cfg, card, new)
+    assert counts == {"eager": new, "captured": 0, "replayed": 0}
+    assert_same_generation(got, want)
+
+
+@pytest.mark.parametrize("s", [256, 1000])
+def test_flash_attention_at_mla_widths(card, s):
+    """bf16 q/k heads of 192 and v of 128 zero-padded to 192 with
+    DeepSeek's scale (192^-0.5 times m² = 1.5896): the kernel against
+    its plain version in float32 (the file's bf16 tolerance), and the
+    padded columns of the output zero."""
+    g = torch.Generator(device=card).manual_seed(s)
+    q, k = (torch.randn((2, s, 16, 192), generator=g, device=card)
+            for _ in range(2))
+    v = torch.nn.functional.pad(
+        torch.randn((2, s, 16, 128), generator=g, device=card), (0, 64))
+    scale = 192 ** -0.5 * 1.5896261651208736
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = flash_attention(q, k, v, scale=scale)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), True, 0,
+                               scale)
+    tol = 2e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    assert not got[..., 128:].any()
+
+
+def test_decode_graphs_share_one_memory_pool(card):
+    """Every call's decode graph allocates from the one pool kept for the
+    card (``launch.serve._capture_place``): past the first call, calls at
+    the same shapes reserve no more device memory.  A pool made anew at
+    every call reserves its size again each time; the caching allocator
+    cannot free the last call's while a stream captures, so a long
+    server's captures run out of memory."""
+    cfg = dataclasses.replace(smoke_config("deepseek-v2-lite"),
+                              dtype="bfloat16")
+    served(cfg, card, 8)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved(card)
+    for _ in range(3):
+        _, counts = served(cfg, card, 8)
+        assert counts == {"eager": 1, "captured": 1, "replayed": 6}
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved(card) == reserved
+    assert list(serve._CAPTURE) == [
+        torch.device("cuda", torch.cuda.current_device())]
